@@ -1,0 +1,107 @@
+"""CLI: ``python -m perf_tpu_torch --config-name nerf [--device cuda]
+device.base_exp_dir=... dataset.image_path=... mode=serve is_continue=true``
+
+Reads the shared ``configs/`` with ``perf_tpu``'s dotted overrides,
+resolves the experiment directory as ``perf_tpu/app/runner.py:141-145``
+does (``<base_exp_dir>/<dataset_class_name>_<case_name>/<exp_name>``,
+``case_name`` being the image's parent directory), builds the field, render
+and snapshot configs as ``runner.py:175-249`` does, loads
+``checkpoints/ckpt.npz`` and serves it over HTTP. Only ``mode=serve`` is
+ported; only the ``brick`` field kind and the ``occ`` estimator.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from os.path import join as pjoin
+from pathlib import Path
+
+import torch
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
+
+
+def exp_dir_of(conf) -> str:
+    image_path = str(conf["dataset"]["image_path"])
+    case_name = image_path.split("/")[-2] if "/" in image_path else "wp"
+    return pjoin(conf["device"]["base_exp_dir"],
+                 f"{conf['dataset_class_name']}_{case_name}",
+                 conf["exp_name"])
+
+
+def scene_configs(conf):
+    """(NGPFieldConfig, RenderConfig, SnapshotConfig) from a loaded config,
+    with the JAX runner's keys and defaults."""
+    from .fields import NGPFieldConfig
+    from .kernels import BrickGridConfig
+    from .render import RenderConfig, SnapshotConfig
+    sc = conf["scene"]
+    if sc.get("estimator_type", "occ") != "occ":
+        raise ValueError("only scene.estimator_type=occ is ported")
+    fc = conf.get_path("scene.field", {}) or {}
+    if fc.get("kind", "hash") != "brick":
+        raise ValueError("only scene.field.kind=brick is ported")
+    # the snapshot path reads only these; its sample cap comes from
+    # snapshot_render_cfg, not scene.max_samples
+    render_cfg = RenderConfig(
+        step=conf.get_path("scene.march_step", 5e-4),
+        occ_res=conf.get_path("scene.occ_res", 256))
+    field_cfg = NGPFieldConfig(grid=BrickGridConfig(
+        n_levels=fc.get("n_levels", 16),
+        n_features=fc.get("n_features", 2),
+        log2_bricks=fc.get("log2_bricks", 12),
+        base_res=fc.get("base_res", 16),
+        per_level_scale=fc.get("per_level_scale", 1.4472692012786865)))
+    sd = SnapshotConfig()
+    for key, off in (("dedup_ratio", 0.0), ("frame_dispatch", False),
+                     ("bake_host", False)):
+        if conf.get_path(f"snapshot.{key}", off) != off:
+            raise ValueError(f"snapshot.{key} is not ported (must be {off})")
+    snap_cfg = SnapshotConfig(
+        res=int(conf.get_path("snapshot.res", sd.res)),
+        sample_stride=conf.get_path("snapshot.sample_stride",
+                                    sd.sample_stride),
+        march_coarse=conf.get_path("snapshot.march_coarse", sd.march_coarse))
+    return field_cfg, render_cfg, snap_cfg
+
+
+def build_scene(conf, device: torch.device):
+    """The scene of the run: the checkpoint's when ``is_continue`` and it
+    exists, else a freshly initialised field (as the JAX runner)."""
+    from .train import NeRFScene, load_checkpoint
+    field_cfg, render_cfg, snap_cfg = scene_configs(conf)
+    gen = torch.Generator().manual_seed(int(conf.get("seed", 0)))
+    scene = NeRFScene(field_cfg, render_cfg, gen, device, snap_cfg)
+    ckpt = pjoin(exp_dir_of(conf), "checkpoints", "ckpt.npz")
+    if conf.get("is_continue", False) and os.path.exists(ckpt):
+        scene.load_state_dict(load_checkpoint(ckpt)["scene"])
+    else:
+        print(f"[perf_tpu_torch] no checkpoint loaded ({ckpt}); serving a "
+              "freshly initialised field", flush=True)
+    return scene
+
+
+def main(argv=None, block: bool = True):
+    ap = argparse.ArgumentParser(prog="python -m perf_tpu_torch")
+    ap.add_argument("--config-name", default="nerf")
+    ap.add_argument("--config-path", default=str(CONFIG_DIR))
+    ap.add_argument("--device", default="cuda", help="cuda | cuda:N | cpu")
+    ap.add_argument("overrides", nargs="*",
+                    help="dotted overrides, e.g. mode=serve is_continue=true")
+    args = ap.parse_args(argv)
+
+    from .config import load_config
+    from .device import get_device
+    conf = load_config(args.config_path, args.config_name, args.overrides)
+    mode = str(conf.get("mode", "train"))
+    if mode != "serve":
+        raise ValueError(f"mode={mode!r}: only mode=serve is ported")
+    device = get_device(args.device)
+    scene = build_scene(conf, device)
+    from .app.serve import serve_scene
+    return serve_scene(scene, conf, block=block)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,39 @@
+"""Carry ``perf_tpu`` state into the port.
+
+``NeRFScene.state_dict()`` of the JAX package holds its parameter tree as
+NumPy arrays (``{"geo": {"table", "mlp": {"w": [...]}}, "app": ...}``,
+weights ``[din, dout]``) and the occupancy grid as a flat uint8 array. The
+port keeps the same tree and layout, so converting is a copy into tensors
+on the chosen device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree, device="cpu"):
+    """Nested dict / list / tuple of arrays -> same nesting of float32
+    tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
+    # a copy: the caller's arrays may be read-only (views of JAX arrays)
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+def occ_grid_from_jax(grid, device="cpu") -> torch.Tensor:
+    """Flat [res^3] occupancy -> uint8 tensor on ``device``."""
+    arr = np.array(grid, dtype=np.uint8).reshape(-1)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_to_numpy(tree):
+    """Inverse of ``params_from_jax``: tensors -> NumPy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()

@@ -1,0 +1,166 @@
+"""The NGP radiance field on the brick grid (serving subset).
+
+Counterpart of ``perf_tpu/fields/ngp.py:64-169``: two independent heads,
+each a brick-grid encode into a bias-free MLP. ``geo`` is in -> 64 -> 1
+with ``trunc_exp``; ``app`` is in -> 64 -> 64 -> 3 with a sigmoid. The
+AABB [-1, 1]^3 maps to [0, 1]; outside it the density is selected to 0
+(``where``, never ``inf * 0``) and the colour multiplied by 0.
+
+``field_eval`` is the fused CUDA kernel (``kernels/csrc/field_eval.cu``)
+for CUDA tensors and ``field_eval_plain`` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels import cuda
+from ..kernels.brickgrid import BrickGridConfig, brick_encode
+from .mlp import ngp_mlp_apply_channels, ngp_mlp_init
+
+
+class TruncExp(torch.autograd.Function):
+    """exp with the forward input clamped to <= 80 and the gradient taken
+    at the input clamped to <= 15 (torch-ngp's trick)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(torch.clamp(x, max=80.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, max=15.0))
+
+
+trunc_exp = TruncExp.apply
+
+
+@dataclasses.dataclass(frozen=True)
+class NGPFieldConfig:
+    aabb_min: float = -1.0
+    aabb_max: float = 1.0
+    grid: BrickGridConfig = BrickGridConfig()
+    n_neurons: int = 64
+    geo_hidden: int = 1
+    app_hidden: int = 2
+
+
+def init_ngp_params(generator: torch.Generator, cfg: NGPFieldConfig,
+                    device=None) -> dict:
+    """Uniform(-1e-4, 1e-4) tables and He-init MLPs, as ``perf_tpu``."""
+    g = cfg.grid
+    shape = (g.n_levels, g.n_bricks, g.n_features * 64)
+
+    def head(dout, hidden):
+        table = (torch.rand(shape, generator=generator) * 2e-4 - 1e-4)
+        return {"table": table.to(device),
+                "mlp": ngp_mlp_init(generator, g.out_dim, dout, cfg.n_neurons,
+                                    hidden, device)}
+    return {"geo": head(1, cfg.geo_hidden), "app": head(3, cfg.app_hidden)}
+
+
+def normalize_coords(cfg: NGPFieldConfig, x, y, z):
+    span = cfg.aabb_max - cfg.aabb_min
+    nx = (x - cfg.aabb_min) / span
+    ny = (y - cfg.aabb_min) / span
+    nz = (z - cfg.aabb_min) / span
+    sel = ((nx > 0.0) & (nx < 1.0) & (ny > 0.0) & (ny < 1.0)
+           & (nz > 0.0) & (nz < 1.0))
+    return nx, ny, nz, sel
+
+
+def query_density_coords(geo_params: dict, x, y, z,
+                         cfg: NGPFieldConfig) -> torch.Tensor:
+    """Density at world coords given as three same-shape tensors."""
+    nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
+    feats = brick_encode(geo_params["table"], torch.stack([nx, ny, nz], -1),
+                         cfg.grid)
+    (raw,) = ngp_mlp_apply_channels(geo_params["mlp"], feats)
+    return torch.where(sel, trunc_exp(raw), torch.zeros_like(raw))
+
+
+def query_rgb_coords(app_params: dict, x, y, z, cfg: NGPFieldConfig):
+    """RGB at world coords -> tuple (r, g, b)."""
+    nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
+    feats = brick_encode(app_params["table"], torch.stack([nx, ny, nz], -1),
+                         cfg.grid)
+    r, g, b = ngp_mlp_apply_channels(app_params["mlp"], feats,
+                                     out_activation=torch.sigmoid)
+    s = sel.float()
+    return r * s, g * s, b * s
+
+
+def field_eval_plain(params: dict, xyz: torch.Tensor,
+                     cfg: NGPFieldConfig) -> torch.Tensor:
+    """xyz [N, 3] world coords -> [N, 4] float32 (sigma, r, g, b)."""
+    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    sig = query_density_coords(params["geo"], x, y, z, cfg)
+    r, g, b = query_rgb_coords(params["app"], x, y, z, cfg)
+    return torch.stack([sig, r, g, b], dim=-1)
+
+
+_FIELD_EVAL = cuda.register(cuda.CudaKernel(
+    "field_eval", "field_eval.cu", "field_eval_launch",
+    [cuda.P, cuda.I64, cuda.P, cuda.P, cuda.P, cuda.P, cuda.I32, cuda.I32,
+     cuda.F32, cuda.F32, cuda.P]))
+
+
+def pack_field_weights(params: dict) -> torch.Tensor:
+    """The kernel's float32 weight buffer: geo W0, geo W1, app W0, app W1,
+    app W2, flattened row-major; the bf16 layers pre-rounded to bf16."""
+    def bf(w):
+        return w.to(torch.bfloat16).float().reshape(-1)
+    gw, aw = params["geo"]["mlp"]["w"], params["app"]["mlp"]["w"]
+    return torch.cat([bf(gw[0]), gw[1].float().reshape(-1), bf(aw[0]),
+                      bf(aw[1]), aw[2].float().reshape(-1)]).contiguous()
+
+
+def level_table(grid: BrickGridConfig, device) -> torch.Tensor:
+    """[L, 3] int32 (level_res, bricks per axis, hashed) for the kernel."""
+    rows = [(grid.level_res(l), grid.level_bricks(l), int(grid.level_hashed(l)))
+            for l in range(grid.n_levels)]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def field_eval_cuda(params: dict, xyz: torch.Tensor,
+                    cfg: NGPFieldConfig) -> torch.Tensor:
+    g = cfg.grid
+    if (g.n_features != 2 or g.n_levels > 16 or cfg.n_neurons != 64
+            or cfg.geo_hidden != 1 or cfg.app_hidden != 2):
+        raise ValueError("field_eval kernel takes 2 features, <= 16 levels, "
+                         "64 neurons, geo 1 / app 2 hidden layers; got "
+                         f"{cfg}")
+    dev = xyz.device
+    cuda.check(xyz, "xyz", torch.float32, (None, 3))
+    tables = []
+    for head in ("geo", "app"):
+        t = params[head]["table"]
+        if t.device != dev or tuple(t.shape) != (g.n_levels, g.n_bricks, 128):
+            raise ValueError(f"{head} table: {tuple(t.shape)} on {t.device}")
+        tables.append(t.to(torch.bfloat16).contiguous())
+    weights = pack_field_weights(params)
+    if weights.device != dev:
+        raise ValueError(f"MLP weights on {weights.device}, points on {dev}")
+    levels = level_table(g, dev)
+    out = torch.empty((xyz.shape[0], 4), dtype=torch.float32, device=dev)
+    _FIELD_EVAL.launch(
+        xyz.data_ptr(), xyz.shape[0], tables[0].data_ptr(),
+        tables[1].data_ptr(), weights.data_ptr(), levels.data_ptr(),
+        g.n_levels, g.n_bricks, float(cfg.aabb_min),
+        float(cfg.aabb_max - cfg.aabb_min), out.data_ptr())
+    return out
+
+
+def field_eval(params: dict, xyz: torch.Tensor,
+               cfg: NGPFieldConfig) -> torch.Tensor:
+    """(sigma, r, g, b) [N, 4] at world points [N, 3]: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if xyz.is_cuda:
+        return field_eval_cuda(params, xyz, cfg)
+    if xyz.device.type != "cpu":
+        raise ValueError(f"field_eval: unsupported device {xyz.device}")
+    return field_eval_plain(params, xyz, cfg)

@@ -1,0 +1,203 @@
+// field_eval: the NGP brick field, encode + both MLPs fused, one thread per point.
+//
+// Replaces (JAX): perf_tpu/kernels/brickgrid.py corner_interp_lowp forward
+// (via brick_encode / encode_brick_level) and perf_tpu/fields/mlp.py
+// ngp_mlp_apply_channels with perf_tpu/fields/ngp.py trunc_exp,
+// query_density_coords and query_rgb_coords. The serving path calls it from
+// the snapshot bake: every occupied corner of the bake grid is one point.
+//
+// What bounds it on the H100: per point, 2 heads x 16 levels of 8 scattered
+// 4-byte loads (two bf16 features of one corner) from 16 MB tables that stay
+// in the 50 MB L2, plus ~2.1k (geo) + ~6.3k (app) multiply-adds of MLP in
+// float32 on the CUDA cores. At 57M bake corners that is ~0.5 TFLOP of
+// scalar FMA: the MLPs, not memory, set the time.
+//
+// Simple design: one thread owns one point end to end, so the 32 features
+// and the 64 hidden units never leave registers. The MLP weights sit in
+// shared memory as float32 values already rounded to bf16 (read as warp
+// broadcasts). Rounding to bf16 happens exactly where JAX rounds: table
+// values (the host passes a bf16 table), the 32 encoded features at the MLP
+// input, each ReLU output; the last layer is float32 with float32 weights.
+// The tensor cores are unused: a later PR can tile points x neurons onto
+// wgmma.
+//
+// Weight buffer (float32, in this order): geo W0 [in, 64], geo W1 [64],
+// app W0 [in, 64], app W1 [64, 64], app W2 [64, 3]; in = 2 * n_levels.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MAX_LEVELS = 16;
+constexpr int MAX_IN = 2 * MAX_LEVELS;
+constexpr int HID = 64;
+constexpr int THREADS = 128;
+constexpr int MAX_W = MAX_IN * HID + HID + MAX_IN * HID + HID * HID + HID * 3;
+
+__device__ __forceinline__ float bf16_round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// One level of the brick encode for one head: returns the two features.
+__device__ __forceinline__ void encode_level(
+        const __nv_bfloat16* __restrict__ table_l, int rows, int res, int nb,
+        int hashed, float nx, float ny, float nz, float& f0, float& f1) {
+    float p[3] = {nx, ny, nz};
+    int b[3], loc[3];
+    float fr[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        float pos = __fmul_rn(fminf(fmaxf(p[a], 0.0f), 1.0f), (float)res);
+        float c0f = fminf(fmaxf(floorf(pos), 0.0f), (float)(res - 1));
+        fr[a] = __fsub_rn(pos, c0f);
+        int c0 = (int)c0f;
+        b[a] = c0 / 3;
+        loc[a] = c0 - b[a] * 3;
+    }
+    uint32_t row;
+    if (hashed) {
+        uint32_t h = ((uint32_t)b[0] * 1u) ^ ((uint32_t)b[1] * 2654435761u)
+                     ^ ((uint32_t)b[2] * 805459861u);
+        row = h & (uint32_t)(rows - 1);
+    } else {
+        row = (uint32_t)((b[0] * nb + b[1]) * nb + b[2]);
+    }
+    const __nv_bfloat162* r2 =
+        reinterpret_cast<const __nv_bfloat162*>(table_l + (size_t)row * 128);
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int ox = 0; ox < 2; ++ox) {
+        float wx = ox ? fr[0] : __fsub_rn(1.0f, fr[0]);
+#pragma unroll
+        for (int oy = 0; oy < 2; ++oy) {
+            float wy = oy ? fr[1] : __fsub_rn(1.0f, fr[1]);
+            float wxy = __fmul_rn(wx, wy);
+#pragma unroll
+            for (int oz = 0; oz < 2; ++oz) {
+                float wz = oz ? fr[2] : __fsub_rn(1.0f, fr[2]);
+                float w = __fmul_rn(wxy, wz);
+                int corner = ((loc[0] + ox) * 4 + (loc[1] + oy)) * 4 + (loc[2] + oz);
+                float2 v = __bfloat1622float2(__ldg(r2 + corner));
+                a0 = __fadd_rn(a0, __fmul_rn(v.x, w));
+                a1 = __fadd_rn(a1, __fmul_rn(v.y, w));
+            }
+        }
+    }
+    f0 = a0;
+    f1 = a1;
+}
+
+__device__ __forceinline__ void encode_head(
+        const __nv_bfloat16* __restrict__ table, int rows, const int* lv,
+        int n_levels, float nx, float ny, float nz, float* feat) {
+#pragma unroll
+    for (int l = 0; l < MAX_LEVELS; ++l) {
+        if (l < n_levels) {
+            float f0, f1;
+            encode_level(table + (size_t)l * rows * 128, rows, lv[3 * l],
+                         lv[3 * l + 1], lv[3 * l + 2], nx, ny, nz, f0, f1);
+            feat[2 * l] = bf16_round(f0);
+            feat[2 * l + 1] = bf16_round(f1);
+        } else {
+            feat[2 * l] = 0.0f;
+            feat[2 * l + 1] = 0.0f;
+        }
+    }
+}
+
+// h[j] = bf16(relu(sum_k feat[k] * W[k, j])) for the first layer.
+__device__ __forceinline__ void first_layer(const float* feat, const float* W,
+                                            int in_dim, float* h) {
+#pragma unroll
+    for (int j = 0; j < HID; ++j) h[j] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < MAX_IN; ++k) {
+        if (k < in_dim) {
+            float fk = feat[k];
+            const float* wk = W + k * HID;
+#pragma unroll
+            for (int j = 0; j < HID; ++j) h[j] = fmaf(fk, wk[j], h[j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < HID; ++j) h[j] = bf16_round(fmaxf(h[j], 0.0f));
+}
+
+__global__ void __launch_bounds__(THREADS)
+field_eval_kernel(const float* __restrict__ xyz, long long n,
+                  const __nv_bfloat16* __restrict__ geo_table,
+                  const __nv_bfloat16* __restrict__ app_table,
+                  const float* __restrict__ weights,
+                  const int* __restrict__ levels, int n_levels, int rows,
+                  float aabb_min, float span, float* __restrict__ out) {
+    __shared__ float sw[MAX_W];
+    __shared__ int slv[3 * MAX_LEVELS];
+    const int in_dim = 2 * n_levels;
+    const int n_w = in_dim * HID + HID + in_dim * HID + HID * HID + HID * 3;
+    for (int i = threadIdx.x; i < n_w; i += blockDim.x) sw[i] = weights[i];
+    for (int i = threadIdx.x; i < 3 * n_levels; i += blockDim.x) slv[i] = levels[i];
+    __syncthreads();
+    const float* gW0 = sw;
+    const float* gW1 = gW0 + in_dim * HID;
+    const float* aW0 = gW1 + HID;
+    const float* aW1 = aW0 + in_dim * HID;
+    const float* aW2 = aW1 + HID * HID;
+
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x) {
+        float nx = (xyz[3 * i] - aabb_min) / span;
+        float ny = (xyz[3 * i + 1] - aabb_min) / span;
+        float nz = (xyz[3 * i + 2] - aabb_min) / span;
+        bool sel = nx > 0.0f && nx < 1.0f && ny > 0.0f && ny < 1.0f &&
+                   nz > 0.0f && nz < 1.0f;
+        float feat[MAX_IN];
+        float h[HID];
+
+        // geo head: in -> 64 -> 1, trunc_exp, where-select
+        encode_head(geo_table, rows, slv, n_levels, nx, ny, nz, feat);
+        first_layer(feat, gW0, in_dim, h);
+        float raw = 0.0f;
+#pragma unroll
+        for (int j = 0; j < HID; ++j) raw = fmaf(h[j], gW1[j], raw);
+        float sigma = sel ? expf(fminf(raw, 80.0f)) : 0.0f;
+
+        // app head: in -> 64 -> 64 -> 3, sigmoid, times the selector
+        encode_head(app_table, rows, slv, n_levels, nx, ny, nz, feat);
+        first_layer(feat, aW0, in_dim, h);
+        float o0 = 0.0f, o1 = 0.0f, o2 = 0.0f;
+        for (int j = 0; j < HID; ++j) {
+            float acc = 0.0f;
+#pragma unroll
+            for (int k = 0; k < HID; ++k) acc = fmaf(h[k], aW1[k * HID + j], acc);
+            acc = bf16_round(fmaxf(acc, 0.0f));
+            o0 = fmaf(acc, aW2[3 * j], o0);
+            o1 = fmaf(acc, aW2[3 * j + 1], o1);
+            o2 = fmaf(acc, aW2[3 * j + 2], o2);
+        }
+        float s = sel ? 1.0f : 0.0f;
+        out[4 * i] = sigma;
+        out[4 * i + 1] = s / (1.0f + expf(-o0));
+        out[4 * i + 2] = s / (1.0f + expf(-o1));
+        out[4 * i + 3] = s / (1.0f + expf(-o2));
+    }
+}
+
+}  // namespace
+
+extern "C" int field_eval_launch(const void* xyz, long long n,
+                                 const void* geo_table, const void* app_table,
+                                 const void* weights, const void* levels,
+                                 int n_levels, int rows, float aabb_min,
+                                 float span, void* out, void* stream) {
+    if (n_levels < 1 || n_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    if (n <= 0) return (int)cudaSuccess;
+    long long blocks = (n + THREADS - 1) / THREADS;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    field_eval_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)xyz, n, (const __nv_bfloat16*)geo_table,
+        (const __nv_bfloat16*)app_table, (const float*)weights,
+        (const int*)levels, n_levels, rows, aabb_min, span, (float*)out);
+    return (int)cudaGetLastError();
+}

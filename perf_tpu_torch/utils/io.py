@@ -1,0 +1,91 @@
+"""Image IO without OpenCV: a PNG encoder / decoder on zlib and the JET
+colormap on NumPy.
+
+Counterpart of the parts of ``perf_tpu/utils/io.py`` and
+``perf_tpu/app/serve.py:35-41`` that serving needs; the GPU machine has no
+``cv2``. ``png_bytes`` writes 8-bit RGB with filter 0 on every row;
+``decode_png`` reads exactly that form. ``colorize_single_channel_image``
+reproduces ``cv2.applyColorMap(..., COLORMAP_JET)`` entry for entry.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+
+
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def png_bytes(img_u8: np.ndarray) -> bytes:
+    """Encode [H, W, 3] uint8 RGB as PNG."""
+    img = np.ascontiguousarray(img_u8, dtype=np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected [H, W, 3] uint8, got {img.shape}")
+    h, w = img.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          img.reshape(h, w * 3)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (_PNG_SIG + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """Decode an 8-bit RGB, non-interlaced PNG whose rows all use filter 0
+    (what ``png_bytes`` writes) -> [H, W, 3] uint8."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None or hdr[2:] != (8, 2, 0, 0, 0):
+        raise ValueError(f"unsupported PNG header {hdr}")
+    w, h = hdr[0], hdr[1]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + 3 * w)
+    if np.any(raw[:, 0] != 0):
+        raise ValueError("only filter type 0 is supported")
+    return raw[:, 1:].reshape(h, w, 3).copy()
+
+
+def _jet_lut() -> np.ndarray:
+    """256-entry uint8 RGB LUT of the JET ramps clip(1.5 - |4x - k|, 0, 1)
+    (k = 3, 2, 1 for r, g, b; x = i / 255), evaluated in float64, stored as
+    float32, scaled by 255 and rounded half to even, as OpenCV's table."""
+    x = np.arange(256) / 255.0
+    ramps = [np.clip(1.5 - np.abs(4.0 * x - k), 0.0, 1.0) for k in (3, 2, 1)]
+    lut = np.stack(ramps, axis=-1).astype(np.float32) * np.float32(255.0)
+    lut = np.rint(lut).astype(np.uint8)
+    # OpenCV stores blue at 159 a hair below the 1.5 / 255 tie: it rounds down
+    lut[159, 2] = 1
+    return lut
+
+
+_JET = None
+
+
+def colorize_single_channel_image(img) -> np.ndarray:
+    """Normalize to [0, 1] and apply the JET colormap -> float RGB [0, 1]."""
+    global _JET
+    if _JET is None:
+        _JET = _jet_lut()
+    img = np.asarray(img).squeeze().astype(np.float32)
+    lo, hi = float(img.min()), float(img.max())
+    img = (img - lo) / max(hi - lo, 1e-9)
+    u8 = (img * 255.0).astype(np.uint8)
+    return _JET[u8].astype(np.float32) / 255.0
