@@ -6,23 +6,33 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
 
 1. build: compiles every kernel under ``perf_tpu_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a``, one process per source, all started together;
-2. scene: the ``configs/nerf.yaml`` brick field at full width (16 levels,
-   2^12 rows, 64 neurons) with parameters drawn with NumPy from ``--seed``,
-   and the cube room's occupancy (256^3) as seen from the origin by a
-   512x1024 pano, written as ``checkpoints/ckpt.npz`` in the run layout;
-3. serve: starts the port's CLI entry (``mode=serve is_continue=true``)
+2. train: writes the synthetic cube room as the input pano at the config's
+   2048x1024 (PNG plus the cached distance and normal maps; the camera sits
+   off-centre so that the wall shell has grazing rays, as real rooms do),
+   then runs the port's CLI (``mode=train``, no anchors) at the full width
+   of ``configs/nerf.yaml`` with 300 geometry and 150 appearance steps:
+   occupancy grid, budget and bucket plan, guarded Adam steps through the
+   brick-encode, march and composite kernels, the snapshot render and the
+   checkpoint. Checks: finite losses, no skipped step, the depth loss of
+   the last 20 steps below half that of the first 20, a non-flat ``1.png``,
+   a checkpoint that loads back; then warm steps timed and traced;
+3. scene: the ``configs/nerf.yaml`` brick field at full width with
+   parameters drawn with NumPy from ``--seed``, and the cube room's
+   occupancy (256^3) as seen from the origin by a 512x1024 pano, written as
+   ``checkpoints/ckpt.npz`` in the run layout;
+4. serve: starts the port's CLI entry (``mode=serve is_continue=true``)
    from that checkpoint, which bakes the 384^3 snapshot, and answers
    health, pano, perspective, distance and displaced-pose renders over
    HTTP; each decoded PNG must be non-flat and equal a direct render;
-4. kernels: holds each kernel against its plain PyTorch version on the
-   same inputs at the shapes of the serving path, and times both.
+5. kernels: holds each kernel against its plain PyTorch version on the
+   same inputs at the shapes of its path (and the training kernels also at
+   the pinned 8192 rays x 128 samples), and times both.
 
-Launch counts are zeroed just before phase 3 and read just after it, and
-every kernel must have launched there. It prints a ``serve`` summary
-(seconds from CLI start to serving, a warm re-bake, warm frame ms of the
-kernel and the plain path, and a ``torch.profiler`` trace of warm frames:
-device ms per frame and the device's idle share), the
-``kernels`` line, the card's name and power limit, and, last,
+Launch counts are zeroed just before each path (train, serve) and read just
+after it; every kernel of a path must have launched there. It prints a
+``train`` summary, a ``serve`` summary, the ``kernels`` line (each kernel
+with its launches on its path, error, ms, plain ms and the card's bound for
+the same work), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; without
 a CUDA device it exits non-zero before doing anything.
 """
@@ -30,6 +40,7 @@ a CUDA device it exits non-zero before doing anything.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,13 +53,35 @@ from urllib.parse import parse_qs, urlparse
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "build", "smoke")
 FRAME_H, FRAME_W = 512, 1024
+ROOM_H, ROOM_W = 1024, 2048            # configs/nerf.yaml image_resize
+ROOM_CAMERA = (0.5, 0.3, -0.2)         # off-centre in the 0.8 half-extent room
+TRAIN_STEPS = (300, 150)               # geometry, appearance
+PINNED = (8192, 128)                   # rays x samples
 CSRC = "perf_tpu_torch/kernels/csrc/"
+# the TPU kernel each entry replaces (file:line of the JAX function)
 REPLACES = {
     "field_eval": "perf_tpu/kernels/brickgrid.py:152",
     "bake_scatter_pack": "perf_tpu/render/snapshot.py:118",
     "march_windows": "perf_tpu/render/renderer.py:255",
     "snapshot_composite": "perf_tpu/render/snapshot.py:311",
+    "brick_encode": "perf_tpu/kernels/brickgrid.py:152",
+    "brick_encode_bwd": "perf_tpu/kernels/brickgrid.py:181",
+    "march_windows_stratified": "perf_tpu/render/renderer.py:255",
+    "count_windows": "perf_tpu/render/renderer.py:163",
+    "shade_composite": "perf_tpu/render/renderer.py:384",
+    "shade_composite_bwd": "perf_tpu/render/renderer.py:384",
+    "occ_grid": "perf_tpu/render/occgrid.py:38",
 }
+SERVE_KERNELS = ("field_eval", "bake_scatter_pack", "march_windows",
+                 "snapshot_composite")
+TRAIN_KERNELS = ("brick_encode", "brick_encode_bwd",
+                 "march_windows_stratified", "count_windows",
+                 "shade_composite", "shade_composite_bwd", "occ_grid")
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 FLOP/s off
+# the tensor cores, bf16 FLOP/s on them
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def check(cond: bool, msg: str):
@@ -58,6 +91,16 @@ def check(cond: bool, msg: str):
 
 def log(msg: str):
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def bound(nbytes: float, flops: float, bf16_flops: float = 0) -> dict:
+    """The least time the card could take: bytes over the HBM rate, float32
+    operations over their peak, or bf16 products (f32 accumulation) over
+    the tensor cores' peak, whichever is largest."""
+    t_b = nbytes / HBM_BPS * 1e3
+    t_f = max(flops / F32_FLOPS, bf16_flops / BF16_FLOPS) * 1e3
+    return {"bound_ms": max(t_b, t_f),
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -93,31 +136,48 @@ def host_ms(fn, reps: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def profile_frames(render, reps: int, frame_ms: float) -> dict:
-    """Trace ``reps`` warm frames with ``torch.profiler``: the card's busy
-    time per frame (union of its kernel and copy intervals), the busiest
-    kernels, and the device's idle share of an untraced warm frame of
-    ``frame_ms``. Returns nulls when the trace holds no device events."""
+def kernel_label(name: str) -> str:
+    """A readable label for a profiler kernel name: the kernel's own name
+    and, for PyTorch's templated element-wise and reduce kernels, the
+    innermost functor they apply."""
+    import re
+    base = re.sub(r"^void |\(anonymous namespace\)::|at::native::", "",
+                  name).split("(")[0].split("<")[0]
+    ops = re.findall(r"(\w*Functor\w*|\w+_functor|\w+Ops\b|"
+                     r"\w+_kernel_cuda)", name)
+    return f"{base}[{ops[-1]}]" if ops else base
+
+
+def profile_device(fn, reps: int, host_ms_each: float,
+                   unit: str = "frame") -> dict:
+    """Trace ``reps`` warm calls of ``fn`` with ``torch.profiler``: the
+    card's busy time per call (union of its kernel and copy intervals), the
+    number of device operations (kernels and copies) per call, the busiest
+    kernels, and the device's idle share of an untraced warm call of
+    ``host_ms_each``. Returns nulls when the trace holds no device
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    render()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            render()
+            fn()
         torch.cuda.synchronize()
-    spans, by_name = [], {}
+    spans, by_name, n_kernels = [], {}, 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        n_kernels += 1
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
+        label = kernel_label(e.name)
+        by_name[label] = by_name.get(label, 0.0) + (t - s)
     if not spans:
         log("profile: the trace holds no device events; idle share not "
             "measured")
-        return {"frames": reps, "device_ms_per_frame": None,
+        return {f"{unit}s": reps, f"device_ms_per_{unit}": None,
                 "idle_share": None}
     spans.sort()
     busy_us, (cur_s, cur_t) = 0.0, spans[0]
@@ -129,9 +189,10 @@ def profile_frames(render, reps: int, frame_ms: float) -> dict:
             cur_t = max(cur_t, t)
     busy_us += cur_t - cur_s
     device_ms = busy_us / 1e3 / reps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"frames": reps, "device_ms_per_frame": device_ms,
-            "idle_share": 1.0 - device_ms / frame_ms,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {f"{unit}s": reps, f"device_ms_per_{unit}": device_ms,
+            "idle_share": 1.0 - device_ms / host_ms_each,
+            f"device_ops_per_{unit}": n_kernels / reps,
             "device_ms_by_kernel": {k: v / 1e3 / reps for k, v in top}}
 
 
@@ -213,7 +274,16 @@ def compare_field_eval(scene, idx, chunk: int) -> dict:
     check(loose <= 2e-3, f"field_eval: {loose:.2e} of outputs off > 1e-4")
     check(bool((err <= 0.05 * scale + 1e-6).all()),
           "field_eval: an output is off by more than 5%")
-    return {"max_abs_err": err.max().item(), "n": int(pts.shape[0]),
+    g, n = scene.field_cfg.grid, int(pts.shape[0])
+    # per point: 12 B in, 16 B out, both bf16 tables once; 8192 MLP
+    # multiply-adds of bf16 inputs and weights (geo W0, app W0, app W1),
+    # and in float32 the 256 of the last layers plus 2 heads x 16 levels x
+    # 8 corners x 2 features of interpolation
+    nbytes = n * 28 + 2 * g.n_levels * g.n_bricks * 128 * 2
+    bf16_flops = n * 2 * (32 * 64 + 32 * 64 + 64 * 64)
+    flops = n * (2 * (64 + 64 * 3) + 2 * g.n_levels * 8 * 2 * 2)
+    return {"max_abs_err": err.max().item(), "n": n,
+            **bound(nbytes, flops, bf16_flops),
             "max_rel_err": (err / (scale + 1e-6)).max().item(),
             "loose_share": loose,
             "ms": cuda_ms(lambda: field_eval(scene.params, pts,
@@ -242,7 +312,14 @@ def compare_scatter(scene, idx) -> dict:
     check(torch.equal(got, ref), "bake_scatter_pack differs from plain")
     check(torch.equal(got, scene.snapshot), "served table is not the bake")
     err = (got.float() - ref.float()).abs().max().item()
-    return {"max_abs_err": err, "n": int(idx.shape[0]),
+    # per corner: 8 B index and 16 B values in; 8 B (4 bf16) out into each
+    # packed row that holds it (up to 2 bricks per axis)
+    rp1 = snap.res + 1
+    copies = torch.ones_like(idx)
+    for a in (idx // (rp1 * rp1), (idx // rp1) % rp1, idx % rp1):
+        copies = copies * (1 + ((a % 3 == 0) & (a > 0)).long())
+    nbytes = idx.shape[0] * 24 + int(copies.sum()) * 8
+    return {"max_abs_err": err, "n": int(idx.shape[0]), **bound(nbytes, 0),
             "ms": cuda_ms(lambda: bake_scatter_pack(got, idx, vals,
                                                     snap.res), 10),
             "plain_ms": cuda_ms(lambda: bake_scatter_pack_plain(
@@ -310,11 +387,15 @@ def compare_march_and_composite(scene, rays, chunk: int) -> tuple:
           "planned chunk: windows differ")
     check(torch.equal(fine[2], fine_ref[2]), "planned chunk: counts differ")
     check(int(fine[2].max()) > 0, "planned chunk marched no window")
+    # dense in / out only: rays and segments in, windows and counts out;
+    # the one-byte occupancy probes (L2-resident grids) are not counted
+    k, s_sel = fine[0].shape[1], seg[0].shape[1]
     march = {
         "max_abs_err": float((torch.where(fine[1] > 0, fine[0], 0)
                               - torch.where(fine_ref[1] > 0, fine_ref[0], 0)
                               ).abs().max().item()),
         "n": int(oc.shape[0]), "budget": budgets[ci],
+        **bound(oc.shape[0] * (24 + 5 * s_sel + 8 * k + 4), 0),
         "plan_ms": cuda_ms(lambda: march_windows(occ, ob, db, cfg, coarse),
                            20),
         "plan_plain_ms": cuda_ms(lambda: march_windows_plain(
@@ -337,10 +418,331 @@ def compare_march_and_composite(scene, rays, chunk: int) -> tuple:
     check(errs["rgb"] <= 2e-5 and errs["opacity"] <= 2e-5
           and errs["distance"] <= 1e-4, f"composite: {errs}")
     check(float(ref["opacity"].mean()) > 0.1, "composite chunk is empty")
+    # rays and windows in, 20 B out per ray; per valid sample 8 corners of
+    # 4 bf16 (at most the whole table); ~90 operations per valid sample
+    n_smp = int(fine[1].sum().item()) * cfg_c.samples_per_window
+    comp_bytes = (oc.shape[0] * (24 + 8 * k + 20)
+                  + min(scene.snapshot.numel() * 2, n_smp * 8 * 8))
     comp = {"max_abs_err": max(errs.values()), "n": int(oc.shape[0]),
+            **bound(comp_bytes, n_smp * 90),
             "ms": cuda_ms(lambda: composite_snapshot(*args), 20),
             "plain_ms": cuda_ms(lambda: composite_snapshot_plain(*args), 5)}
     return march, comp
+
+
+def write_room(device) -> str:
+    """Phase 2 input: the cube room pano at 2048x1024 as PNG, with the
+    cached distance and normal maps beside it (the cache-hit path)."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.utils import render_cube_room_pano
+    from perf_tpu_torch.utils.io import png_bytes
+    pose = torch.eye(4, device=device)
+    pose[:3, 3] = torch.tensor(ROOM_CAMERA, device=device)
+    pano = render_cube_room_pano(pose, ROOM_H, ROOM_W)
+    room = os.path.join(RUN_DIR, "room")
+    os.makedirs(room, exist_ok=True)
+    rgb = torch.round(pano["rgb"].clamp(0, 1) * 255).to(torch.uint8)
+    path = os.path.join(room, "image.png")
+    with open(path, "wb") as f:
+        f.write(png_bytes(rgb.cpu().numpy()))
+    np.save(os.path.join(room, "image_ref_distance.npy"),
+            pano["distance"].cpu().numpy())
+    np.save(os.path.join(room, "image_ref_normal.npy"),
+            pano["normal"].cpu().numpy())
+    return path
+
+
+def train_phase(overrides: list):
+    """Phase 2: the CLI's raw fit, checked. Returns (runner, summary)."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.__main__ import main as cli_main
+    from perf_tpu_torch.train import NeRFScene, SupInfoPool, load_checkpoint
+    from perf_tpu_torch.utils.io import decode_png
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = cli_main(["--device", "cuda", "--config-name", "nerf",
+                       *overrides])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    geo, app = runner.losses["geo_losses"], runner.losses["app_losses"]
+    check(np.isfinite(geo).all() and np.isfinite(app).all(),
+          "non-finite training loss")
+    check((geo[:, -1] == 1).all() and (app[:, -1] == 1).all(),
+          f"skipped steps: geo {int((geo[:, -1] == 0).sum())}, "
+          f"app {int((app[:, -1] == 0).sum())}")
+    d_first, d_last = float(geo[:20, 1].mean()), float(geo[-20:, 1].mean())
+    check(d_last < 0.5 * d_first,
+          f"depth loss did not fall: {d_first} -> {d_last}")
+    with open(os.path.join(runner.exp_dir, "1.png"), "rb") as f:
+        img = decode_png(f.read())
+    check(img.shape == (512, 1024, 3) and float(img.std()) > 5.0,
+          f"1.png flat or misshapen: {img.shape} std {img.std()}")
+    scene = runner.scene
+    state = load_checkpoint(os.path.join(runner.exp_dir, "checkpoints",
+                                         "ckpt.npz"))
+    back = NeRFScene(scene.field_cfg, scene.render_cfg,
+                     torch.Generator().manual_seed(1), scene.device,
+                     scene.snap_cfg, scene.train_cfg)
+    back.load_state_dict(state["scene"])
+    pool = SupInfoPool()
+    pool.load_state_dict(state["sup_pool"])
+    check(int(state["phase"]) == 0 and pool.n_valid == runner.sup_pool.n_valid
+          and torch.equal(back.params["geo"]["table"],
+                          scene.params["geo"]["table"])
+          and torch.equal(back.occ_grid, scene.occ_grid),
+          "the checkpoint does not load back")
+    metrics = {}
+    with open(os.path.join(runner.exp_dir, "ts_log", "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            metrics[rec["tag"]] = rec["value"]
+    plans = {}
+    for phase in ("geo", "app"):
+        rc, plan = scene.phase_render_cfg(phase)
+        plans[phase] = {"samples": rc.max_samples, "stride": rc.sample_stride,
+                        "bucket": list(plan) if plan else None}
+    summary = {
+        "run_s": run_s, "steps": list(TRAIN_STEPS),
+        "batch": scene.train_cfg.pixel_loss_batch_size,
+        "episode_geo_s": metrics["time/fit_geo_sec"],
+        "episode_app_s": metrics["time/fit_app_sec"],
+        "rays_per_s": {"geo": metrics["throughput/fit_geo_rays_per_sec"],
+                       "app": metrics["throughput/fit_app_rays_per_sec"]},
+        "budget": scene.sample_budget,
+        "bucket_plan": list(scene.bucket_plan) if scene.bucket_plan else None,
+        "phases": plans, "pool_rays": runner.sup_pool.n_valid,
+        "occ_voxels": int(scene.occ_grid.sum()),
+        "depth_loss_first20": d_first, "depth_loss_last20": d_last,
+        "color_loss_first20": float(app[:20, 1].mean()),
+        "color_loss_last20": float(app[-20:, 1].mean()),
+        "skipped_steps": 0, "max_memory_allocated": peak,
+        "png_std": float(img.std())}
+    return runner, summary
+
+
+def warm_steps(runner) -> dict:
+    """Warm single steps of each phase, timed (synchronised, median of 10),
+    traced (5 steps) and counted (launches per step over 5 steps)."""
+    from perf_tpu_torch.kernels import cuda
+    scene = runner.scene
+    arrs = runner.sup_pool.device_arrays(scene.device)
+    out = {}
+    for phase, n_iters in zip(("geo", "app"), TRAIN_STEPS):
+        with scene.phase_steps(phase, arrs, n_iters) as steps:
+            it = iter(range(1 << 30))
+
+            def step():
+                steps.step(next(it) % n_iters)
+            step_ms = host_ms(step, 10)
+            before = cuda.counts()
+            for _ in range(5):
+                step()
+            after = cuda.counts()
+            out[phase] = {
+                "step_ms": step_ms,
+                "launches_per_step": {k: (after[k] - before[k]) / 5
+                                      for k in after
+                                      if after[k] != before[k]},
+                "profile": profile_device(step, 5, step_ms, unit="step")}
+    return out
+
+
+def _train_inputs(runner, samples: int | None, seed: int):
+    """A batch of 8192 pool rays marched (stratified) at the geometry
+    phase's config, or at ``samples`` samples of stride 1 (the pinned
+    shape): (cfg, coarse, o, d, jitter, march outputs, t_mid, valid, nx,
+    ny, nz, strides)."""
+    import torch
+    from perf_tpu_torch.fields import normalize_coords
+    from perf_tpu_torch.kernels.hashgrid import level_strides
+    from perf_tpu_torch.render.renderer import (coarse_occ_grid,
+                                                march_windows,
+                                                windows_to_samples)
+    scene = runner.scene
+    arrs = runner.sup_pool.device_arrays(scene.device)
+    g = torch.Generator(device=scene.device).manual_seed(seed)
+    b = PINNED[0]
+    o, d, _, _ = scene._sample_batch(
+        arrs, torch.rand(b, generator=g, device=scene.device))
+    jitter = torch.rand((b, 1), generator=g, device=scene.device)
+    cfg = scene.phase_render_cfg("geo")[0]
+    if samples:
+        cfg = dataclasses.replace(cfg, max_samples=samples, sample_stride=1)
+    coarse = coarse_occ_grid(scene.occ_grid, cfg.occ_res)
+    march = march_windows(scene.occ_grid, o, d, cfg, coarse, jitter=jitter)
+    t_mid, valid = windows_to_samples(march[0], march[1], cfg, jitter)
+    px, py, pz = (o[:, a:a + 1] + d[:, a:a + 1] * t_mid for a in range(3))
+    nx, ny, nz, _ = normalize_coords(scene.field_cfg, px, py, pz)
+    strides = level_strides(scene.field_cfg.grid, cfg.step, t_mid.shape[1])
+    return (cfg, coarse, o, d, jitter, march, t_mid, valid,
+            nx.contiguous(), ny.contiguous(), nz.contiguous(), strides)
+
+
+def compare_train_kernels(runner, seed: int) -> dict:
+    """Each training kernel against its plain version at the smoke scene's
+    geometry-phase shape (8192 rays at the phase budget) and at the pinned
+    8192 x 128; the pool-sized kernels (occupancy grid, window counts) at
+    their path's shapes."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.fields import query_density_ray
+    from perf_tpu_torch.kernels.brickgrid import (
+        brick_points_cuda, brick_points_grad_cuda, brick_points_grad_plain,
+        brick_points_plain, level_plan)
+    from perf_tpu_torch.render.occgrid import (occ_grid_from_points_cuda,
+                                               occ_grid_from_points_plain)
+    from perf_tpu_torch.render.renderer import (
+        count_occupied_windows_cuda, count_occupied_windows_plain,
+        march_windows_cuda, march_windows_plain, shade_composite_cuda,
+        shade_composite_grad_cuda, shade_composite_plain)
+    scene = runner.scene
+    grid = scene.field_cfg.grid
+    table = scene.params["geo"]["table"]
+    table_bf16_bytes = table.numel() * 2
+    res = {k: {} for k in ("brick_encode", "brick_encode_bwd",
+                           "march_windows_stratified", "shade_composite",
+                           "shade_composite_bwd")}
+    for tag, samples in (("scene", None), ("pinned", PINNED[1])):
+        (cfg, coarse, o, d, jitter, march, t_mid, valid, nx, ny, nz,
+         strides) = _train_inputs(runner, samples, seed)
+        n, s = t_mid.shape
+        occ = scene.occ_grid
+
+        # the stratified march: integers, every slot exactly
+        got = march_windows_cuda(occ, o, d, cfg, coarse, jitter=jitter)
+        ref = march_windows_plain(occ, o, d, cfg, coarse, jitter=jitter)
+        torch.cuda.synchronize()
+        for a, b_ in zip(got, ref):
+            check(torch.equal(a, b_), f"stratified march ({tag}) differs")
+        k, ms = got[0].shape[1], got[3].shape[1]
+        res["march_windows_stratified"][tag] = {
+            "shape": [n, s], "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: march_windows_cuda(
+                occ, o, d, cfg, coarse, jitter=jitter), 20),
+            "plain_ms": cuda_ms(lambda: march_windows_plain(
+                occ, o, d, cfg, coarse, jitter=jitter), 5),
+            **bound(n * (28 + 5 * ms + 8 * k + 4), 0)}
+
+        # brick encode forward: the same 8 bf16 corners, float32 sums in
+        # another order
+        plan, total = level_plan(grid, strides, n, s)
+        f_got = brick_points_cuda(table, nx, ny, nz, grid, strides)
+        f_ref = brick_points_plain(table, nx, ny, nz, grid, strides)
+        torch.cuda.synchronize()
+        err = (f_got - f_ref).abs().max().item()
+        check(err <= 1e-6 * max(1.0, f_ref.abs().max().item()),
+              f"brick_encode ({tag}): {err}")
+        enc_bytes = 3 * n * s * 4 + min(table_bf16_bytes, total * 32)
+        res["brick_encode"][tag] = {
+            "shape": [n, s], "points": total, "max_abs_err": err,
+            "ms": cuda_ms(lambda: brick_points_cuda(table, nx, ny, nz, grid,
+                                                    strides), 20),
+            "plain_ms": cuda_ms(lambda: brick_points_plain(
+                table, nx, ny, nz, grid, strides), 3),
+            **bound(enc_bytes + total * 8, total * 52)}
+
+        # its backward: the same bf16-rounded contributions, added by float
+        # atomics in an order that changes from run to run
+        gen = torch.Generator(device=scene.device).manual_seed(seed + 1)
+        g = torch.randn((total, 2), generator=gen, device=scene.device)
+        b_got = brick_points_grad_cuda(table.shape, nx, ny, nz, grid,
+                                       strides, g)
+        b_ref = brick_points_grad_plain(table.shape, nx, ny, nz, grid,
+                                        strides, g)
+        torch.cuda.synchronize()
+        rel = ((b_got - b_ref).norm() / b_ref.norm()).item()
+        check(rel <= 1e-6, f"brick_encode_bwd ({tag}): rel {rel}")
+        res["brick_encode_bwd"][tag] = {
+            "shape": [n, s], "points": total,
+            "max_abs_err": (b_got - b_ref).abs().max().item(),
+            "rel_norm_err": rel,
+            "ms": cuda_ms(lambda: brick_points_grad_cuda(
+                table.shape, nx, ny, nz, grid, strides, g), 20),
+            "plain_ms": cuda_ms(lambda: brick_points_grad_plain(
+                table.shape, nx, ny, nz, grid, strides, g), 3),
+            **bound(3 * n * s * 4 + total * 8 + table.numel() * 4,
+                    total * 64)}
+
+        # the composite: sigma of the trained field at these samples
+        with torch.no_grad():
+            sigma = query_density_ray(scene.params["geo"], *(
+                o[:, a:a + 1] + d[:, a:a + 1] * t_mid for a in range(3)),
+                scene.field_cfg, strides)
+        sigma = torch.where(valid > 0, sigma, torch.zeros_like(sigma))
+        delta = cfg.step * cfg.sample_stride
+        c_got = shade_composite_cuda(sigma, t_mid, valid, delta)
+        c_ref = shade_composite_plain(sigma, t_mid, valid, delta)
+        torch.cuda.synchronize()
+        errs = [(c_got[i] - c_ref[j]).abs().max().item()
+                for i, j in ((0, 0), (2, 1), (3, 2), (4, 3))]
+        # sequential float32 scans against cumsum / sum: ~1e-6 of values
+        # <= 1 (weights, opacity), <= 1.5 (distance)
+        check(max(errs) <= 1e-5, f"shade_composite ({tag}): {errs}")
+        check(float(c_ref[1].mean()) > 0.2, f"composite ({tag}) transparent")
+        res["shade_composite"][tag] = {
+            "shape": [n, s], "max_abs_err": max(errs),
+            "ms": cuda_ms(lambda: shade_composite_cuda(sigma, t_mid, valid,
+                                                       delta), 20),
+            "plain_ms": cuda_ms(lambda: shade_composite_plain(
+                sigma, t_mid, valid, delta), 5),
+            **bound(n * s * 20 + n * 12, n * s * 30)}
+        cots = [torch.randn(sh, generator=gen, device=scene.device)
+                for sh in ((n, 1), (n, 1), (n,))]
+        g_got = shade_composite_grad_cuda(sigma, t_mid, valid, c_got[0],
+                                          c_got[1], delta, *cots)
+        sig_req = sigma.clone().requires_grad_(True)
+        outs = shade_composite_plain(sig_req, t_mid, valid, delta)[1:]
+        lin = sum((a * c).sum() for a, c in zip(outs, cots))
+        (g_ref,) = torch.autograd.grad(lin, sig_req, retain_graph=True)
+        torch.cuda.synchronize()
+        gerr = ((g_got - g_ref).abs().max() / g_ref.abs().max()).item()
+        # a reverse scan against autograd's: relative to the largest entry
+        check(gerr <= 1e-4, f"shade_composite_bwd ({tag}): {gerr}")
+        res["shade_composite_bwd"][tag] = {
+            "shape": [n, s], "max_abs_err": (g_got - g_ref).abs().max().item(),
+            "max_rel_err": gerr,
+            "ms": cuda_ms(lambda: shade_composite_grad_cuda(
+                sigma, t_mid, valid, c_got[0], c_got[1], delta, *cots), 20),
+            "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                lin, sig_req, retain_graph=True), 5),
+            **bound(n * s * 24 + n * 12, n * s * 40)}
+
+    # the pool-sized kernels, at the episode's shapes
+    arrs = runner.sup_pool.device_arrays(scene.device)
+    nv = arrs["n_valid"]
+    pts = (arrs["rays_o"][:nv] + arrs["rays_d"][:nv]
+           * arrs["distances"][:nv]).contiguous()
+    rc = scene.render_cfg
+    o_got = occ_grid_from_points_cuda(pts, rc.occ_res, rc.occ_dilation)
+    o_ref = occ_grid_from_points_plain(pts, rc.occ_res, rc.occ_dilation)
+    torch.cuda.synchronize()
+    check(torch.equal(o_got, o_ref), "occ_grid differs from plain")
+    check(torch.equal(o_got, scene.occ_grid), "the episode's grid differs")
+    res["occ_grid"] = {
+        "points": int(nv), "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: occ_grid_from_points_cuda(
+            pts, rc.occ_res, rc.occ_dilation), 10),
+        "plain_ms": cuda_ms(lambda: occ_grid_from_points_plain(
+            pts, rc.occ_res, rc.occ_dilation), 2),
+        **bound(nv * 12 + rc.occ_res ** 3, nv * 27 * 12)}
+    idx = torch.from_numpy(np.linspace(0, nv - 1, min(16384, nv)).astype(
+        np.int64)).to(scene.device)
+    po, pd = arrs["rays_o"][idx].contiguous(), arrs["rays_d"][idx].contiguous()
+    c_got = count_occupied_windows_cuda(scene.occ_grid, po, pd, rc)
+    c_ref = count_occupied_windows_plain(scene.occ_grid, po, pd, rc)
+    torch.cuda.synchronize()
+    check(torch.equal(c_got, c_ref), "count_windows differs from plain")
+    res["count_windows"] = {
+        "rays": int(idx.shape[0]), "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: count_occupied_windows_cuda(
+            scene.occ_grid, po, pd, rc), 20),
+        "plain_ms": cuda_ms(lambda: count_occupied_windows_plain(
+            scene.occ_grid, po, pd, rc), 5),
+        **bound(idx.shape[0] * 28, 0)}
+    return res
 
 
 def run(seed: int):
@@ -369,21 +771,38 @@ def run(seed: int):
             if "registers" in line or "spill" in line:
                 log(f"{name}: {line.strip()}")
 
-    # 2. scene
+    # 2. train: the main path of mode=train, counted
+    image = write_room(device)
+    train_overrides = [
+        f"device.base_exp_dir={os.path.join(RUN_DIR, 'train_exp')}",
+        f"dataset.image_path={image}", "mode=train",
+        "pose_sampler.n_anchors_per_ratio=[0,0,0]",
+        f"scene.train_conf.raw_phase_iter_geo={TRAIN_STEPS[0]}",
+        f"scene.train_conf.raw_phase_iter_app={TRAIN_STEPS[1]}"]
+    cuda.reset_counts()
+    runner, train = train_phase(train_overrides)
+    launches_train = cuda.counts()
+    log(f"launches on the training path: {launches_train}")
+    check(all(launches_train[k] > 0 for k in TRAIN_KERNELS),
+          f"a kernel never launched on the training path: {launches_train}")
+    train.update(warm_steps(runner))
+    log(f"train: {json.dumps(train)}")
+
+    # 3. scene
     overrides = [f"device.base_exp_dir={os.path.join(RUN_DIR, 'exp')}",
-                 f"dataset.image_path={os.path.join(RUN_DIR, 'room', 'image.png')}",
+                 f"dataset.image_path={image}",
                  "mode=serve", "is_continue=true", "serve.port=0",
                  f"serve.height={FRAME_H}", f"serve.width={FRAME_W}"]
     conf = load_config(os.path.join(REPO, "configs"), "nerf", overrides)
     scene_info = write_scene(seed, conf, device)
     log(f"scene: {scene_info}")
 
-    # 3. serve: the main path, counted
+    # 4. serve: the main path of mode=serve, counted
     cuda.reset_counts()
     httpd, responses, ready_s = serve_phase(overrides)
     launches = cuda.counts()
     log(f"launches on the serving path: {launches}")
-    check(all(v > 0 for v in launches.values()) and len(launches) == 4,
+    check(all(launches[k] > 0 for k in SERVE_KERNELS),
           f"a kernel never launched on the serving path: {launches}")
     try:
         srv = httpd.scene_server
@@ -429,14 +848,14 @@ def run(seed: int):
              "frame_ms": frame_ms,
              "plain_frame_ms": host_ms(
                  lambda: scene.render_snapshot(rays, plain=True), 3),
-             "profile": profile_frames(lambda: scene.render_snapshot(rays),
+             "profile": profile_device(lambda: scene.render_snapshot(rays),
                                        5, frame_ms),
              "frame": [FRAME_H, FRAME_W],
              "request_ms": {k: v[2] for k, v in responses.items()},
              **scene_info}
     serve.pop("ckpt")
 
-    # 4. kernels vs their plain versions at the path's shapes
+    # 5. kernels vs their plain versions at the path's shapes
     idx = bake_corners(scene.occ_grid, scene.render_cfg.occ_res,
                        scene.snap_cfg.res)
     serve["bake_corners"] = int(idx.shape[0])
@@ -447,20 +866,31 @@ def run(seed: int):
     }
     results["march_windows"], results["snapshot_composite"] = \
         compare_march_and_composite(scene, rays, 32768)
+    results.update(compare_train_kernels(runner, seed))
     for name, r in results.items():
         log(f"{name}: {json.dumps(r)}")
-    # field_eval's check is relative (sigma spans many decades), so its
-    # entry also carries the relative error and the share past 1e-4
-    kernels = [{"name": name, "route": "cuda",
-                "source": CSRC + cuda.KERNELS[name].source,
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": results[name]["max_abs_err"],
-                **{k: results[name][k] for k in ("max_rel_err", "loose_share")
-                   if k in results[name]},
-                "ms": results[name]["ms"],
-                "plain_ms": results[name]["plain_ms"]}
-               for name in REPLACES]
-    return serve, kernels
+    kernels = []
+    for name in REPLACES:
+        r = results[name]
+        if name in SERVE_KERNELS:
+            counted, path = launches[name], "serve"
+        else:
+            counted, path = launches_train[name], "train"
+        # the training kernels at the smoke scene's shape; the pinned
+        # 8192 x 128 shape rides along
+        top = r.get("scene", r)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": CSRC + cuda.KERNELS[name].source,
+            "replaces": REPLACES[name], "path": path, "launches": counted,
+            "max_abs_err": top["max_abs_err"],
+            **{k: top[k] for k in ("max_rel_err", "loose_share",
+                                   "rel_norm_err") if k in top},
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None,
+            **({"pinned": r["pinned"]} if "pinned" in r else {})})
+    return train, serve, kernels
 
 
 def main():
@@ -472,7 +902,8 @@ def main():
         print("chip_smoke: no CUDA device is visible to torch", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, REPO)
-    serve, kernels = run(args.seed)
+    train, serve, kernels = run(args.seed)
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,13 +1,20 @@
 """CLI: ``python -m perf_tpu_torch --config-name nerf [--device cuda]
-device.base_exp_dir=... dataset.image_path=... mode=serve is_continue=true``
+device.base_exp_dir=... dataset.image_path=... mode=train|serve``
 
 Reads the shared ``configs/`` with ``perf_tpu``'s dotted overrides,
 resolves the experiment directory as ``perf_tpu/app/runner.py:141-145``
 does (``<base_exp_dir>/<dataset_class_name>_<case_name>/<exp_name>``,
-``case_name`` being the image's parent directory), builds the field, render
-and snapshot configs as ``runner.py:175-249`` does, loads
-``checkpoints/ckpt.npz`` and serves it over HTTP. Only ``mode=serve`` is
-ported; only the ``brick`` field kind and the ``occ`` estimator.
+``case_name`` being the image's parent directory) and builds the field,
+render and snapshot configs as ``runner.py:175-249`` does.
+
+- ``mode=train``: the raw fit of the input pano (``app/runner.py``); needs
+  ``pose_sampler.n_anchors_per_ratio=[0,0,0]`` (the anchor cycle is not
+  ported) and the cached geometry beside the image.
+- ``mode=serve`` (with ``is_continue=true``): loads
+  ``checkpoints/ckpt.npz`` and serves it over HTTP.
+
+Only the ``brick`` field kind and the ``occ`` estimator are ported. The
+device defaults to ``cuda``; ``--device cpu`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -42,11 +49,15 @@ def scene_configs(conf):
     fc = conf.get_path("scene.field", {}) or {}
     if fc.get("kind", "hash") != "brick":
         raise ValueError("only scene.field.kind=brick is ported")
-    # the snapshot path reads only these; its sample cap comes from
-    # snapshot_render_cfg, not scene.max_samples
+    rc = conf.get_path("scene.renderer_conf", {}) or {}
+    # the snapshot takes its sample cap from snapshot_render_cfg, not
+    # scene.max_samples
     render_cfg = RenderConfig(
+        bg_color=rc.get("bg_color", "rand_noise"),
+        max_samples=conf.get_path("scene.max_samples", 256),
         step=conf.get_path("scene.march_step", 5e-4),
-        occ_res=conf.get_path("scene.occ_res", 256))
+        occ_res=conf.get_path("scene.occ_res", 256),
+        occ_dilation=conf.get_path("scene.occ_dilation", 1))
     field_cfg = NGPFieldConfig(grid=BrickGridConfig(
         n_levels=fc.get("n_levels", 16),
         n_features=fc.get("n_features", 2),
@@ -95,9 +106,15 @@ def main(argv=None, block: bool = True):
     from .device import get_device
     conf = load_config(args.config_path, args.config_name, args.overrides)
     mode = str(conf.get("mode", "train"))
-    if mode != "serve":
-        raise ValueError(f"mode={mode!r}: only mode=serve is ported")
+    if mode not in ("train", "serve"):
+        raise ValueError(f"mode={mode!r}: only mode=train and mode=serve "
+                         "are ported")
     device = get_device(args.device)
+    if mode == "train":
+        from .app.runner import TrainRunner
+        runner = TrainRunner(conf, device)
+        runner.train()
+        return runner
     scene = build_scene(conf, device)
     from .app.serve import serve_scene
     return serve_scene(scene, conf, block=block)

@@ -4,3 +4,5 @@ from .camera import (
     pano_coord_to_direction, img_coord_to_pano_direction,
     cam_rays_cam_space, gen_pano_rays, gen_pers_rays,
 )
+from .morphology import laplacian3, erosion, dilation, edge_keep_mask
+from .optim import GuardedAdam, all_finite

@@ -1,13 +1,16 @@
-"""The NGP radiance field on the brick grid (serving subset).
+"""The NGP radiance field on the brick grid.
 
-Counterpart of ``perf_tpu/fields/ngp.py:64-169``: two independent heads,
+Counterpart of ``perf_tpu/fields/ngp.py:64-200``: two independent heads,
 each a brick-grid encode into a bias-free MLP. ``geo`` is in -> 64 -> 1
 with ``trunc_exp``; ``app`` is in -> 64 -> 64 -> 3 with a sigmoid. The
 AABB [-1, 1]^3 maps to [0, 1]; outside it the density is selected to 0
 (``where``, never ``inf * 0``) and the colour multiplied by 0.
 
 ``field_eval`` is the fused CUDA kernel (``kernels/csrc/field_eval.cu``)
-for CUDA tensors and ``field_eval_plain`` for CPU tensors.
+for CUDA tensors and ``field_eval_plain`` for CPU tensors (serving). The
+training path queries ray-structured samples through ``query_density_ray``
+/ ``query_rgb_ray``: the ``brick_encode`` kernels with level strides, then
+the MLP under autograd.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import dataclasses
 import torch
 
 from ..kernels import cuda
-from ..kernels.brickgrid import BrickGridConfig, brick_encode
+from ..kernels.brickgrid import (BrickGridConfig, brick_encode,
+                                 brick_encode_ray)
 from .mlp import ngp_mlp_apply_channels, ngp_mlp_init
 
 
@@ -49,18 +53,35 @@ class NGPFieldConfig:
     app_hidden: int = 2
 
 
-def init_ngp_params(generator: torch.Generator, cfg: NGPFieldConfig,
-                    device=None) -> dict:
-    """Uniform(-1e-4, 1e-4) tables and He-init MLPs, as ``perf_tpu``."""
+def _init_head(generator: torch.Generator, cfg: NGPFieldConfig, dout: int,
+               hidden: int, device) -> dict:
+    """Uniform(-1e-4, 1e-4) table and a He-init MLP, as ``perf_tpu``."""
     g = cfg.grid
     shape = (g.n_levels, g.n_bricks, g.n_features * 64)
+    table = torch.rand(shape, generator=generator) * 2e-4 - 1e-4
+    return {"table": table.to(device),
+            "mlp": ngp_mlp_init(generator, g.out_dim, dout, cfg.n_neurons,
+                                hidden, device)}
 
-    def head(dout, hidden):
-        table = (torch.rand(shape, generator=generator) * 2e-4 - 1e-4)
-        return {"table": table.to(device),
-                "mlp": ngp_mlp_init(generator, g.out_dim, dout, cfg.n_neurons,
-                                    hidden, device)}
-    return {"geo": head(1, cfg.geo_hidden), "app": head(3, cfg.app_hidden)}
+
+def init_geo_params(generator, cfg: NGPFieldConfig, device=None) -> dict:
+    return _init_head(generator, cfg, 1, cfg.geo_hidden, device)
+
+
+def init_app_params(generator, cfg: NGPFieldConfig, device=None) -> dict:
+    return _init_head(generator, cfg, 3, cfg.app_hidden, device)
+
+
+def init_ngp_params(generator: torch.Generator, cfg: NGPFieldConfig,
+                    device=None) -> dict:
+    return {"geo": init_geo_params(generator, cfg, device),
+            "app": init_app_params(generator, cfg, device)}
+
+
+def reset_geo(params: dict, generator: torch.Generator,
+              cfg: NGPFieldConfig, device=None) -> dict:
+    """A fresh geometry head, appearance untouched (``reset_geo``)."""
+    return {**params, "geo": init_geo_params(generator, cfg, device)}
 
 
 def normalize_coords(cfg: NGPFieldConfig, x, y, z):
@@ -88,6 +109,29 @@ def query_rgb_coords(app_params: dict, x, y, z, cfg: NGPFieldConfig):
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
     feats = brick_encode(app_params["table"], torch.stack([nx, ny, nz], -1),
                          cfg.grid)
+    r, g, b = ngp_mlp_apply_channels(app_params["mlp"], feats,
+                                     out_activation=torch.sigmoid)
+    s = sel.float()
+    return r * s, g * s, b * s
+
+
+def query_density_ray(geo_params: dict, x, y, z, cfg: NGPFieldConfig,
+                      strides: tuple) -> torch.Tensor:
+    """Density at ray-structured world coords [N, S] with per-level strides,
+    differentiable in the head's table and MLP."""
+    nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
+    feats = brick_encode_ray(geo_params["table"], nx, ny, nz, cfg.grid,
+                             strides)
+    (raw,) = ngp_mlp_apply_channels(geo_params["mlp"], feats)
+    return torch.where(sel, trunc_exp(raw), torch.zeros_like(raw))
+
+
+def query_rgb_ray(app_params: dict, x, y, z, cfg: NGPFieldConfig,
+                  strides: tuple):
+    """RGB at ray-structured world coords [N, S] -> (r, g, b)."""
+    nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
+    feats = brick_encode_ray(app_params["table"], nx, ny, nz, cfg.grid,
+                             strides)
     r, g, b = ngp_mlp_apply_channels(app_params["mlp"], feats,
                                      out_activation=torch.sigmoid)
     s = sel.float()

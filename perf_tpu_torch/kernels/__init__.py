@@ -1,4 +1,3 @@
 from .brickgrid import (
-    BrickGridConfig, brick_index, axis_split, lane_axes, interp_from_rows,
-    encode_brick_level, brick_encode,
+    BrickGridConfig, brick_index, axis_split, brick_encode, brick_encode_ray,
 )

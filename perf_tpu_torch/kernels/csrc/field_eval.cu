@@ -28,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "brick_common.cuh"
+
 namespace {
 
 constexpr int MAX_LEVELS = 16;
@@ -40,66 +42,19 @@ __device__ __forceinline__ float bf16_round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// One level of the brick encode for one head: returns the two features.
-__device__ __forceinline__ void encode_level(
-        const __nv_bfloat16* __restrict__ table_l, int rows, int res, int nb,
-        int hashed, float nx, float ny, float nz, float& f0, float& f1) {
-    float p[3] = {nx, ny, nz};
-    int b[3], loc[3];
-    float fr[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-        float pos = __fmul_rn(fminf(fmaxf(p[a], 0.0f), 1.0f), (float)res);
-        float c0f = fminf(fmaxf(floorf(pos), 0.0f), (float)(res - 1));
-        fr[a] = __fsub_rn(pos, c0f);
-        int c0 = (int)c0f;
-        b[a] = c0 / 3;
-        loc[a] = c0 - b[a] * 3;
-    }
-    uint32_t row;
-    if (hashed) {
-        uint32_t h = ((uint32_t)b[0] * 1u) ^ ((uint32_t)b[1] * 2654435761u)
-                     ^ ((uint32_t)b[2] * 805459861u);
-        row = h & (uint32_t)(rows - 1);
-    } else {
-        row = (uint32_t)((b[0] * nb + b[1]) * nb + b[2]);
-    }
-    const __nv_bfloat162* r2 =
-        reinterpret_cast<const __nv_bfloat162*>(table_l + (size_t)row * 128);
-    float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-    for (int ox = 0; ox < 2; ++ox) {
-        float wx = ox ? fr[0] : __fsub_rn(1.0f, fr[0]);
-#pragma unroll
-        for (int oy = 0; oy < 2; ++oy) {
-            float wy = oy ? fr[1] : __fsub_rn(1.0f, fr[1]);
-            float wxy = __fmul_rn(wx, wy);
-#pragma unroll
-            for (int oz = 0; oz < 2; ++oz) {
-                float wz = oz ? fr[2] : __fsub_rn(1.0f, fr[2]);
-                float w = __fmul_rn(wxy, wz);
-                int corner = ((loc[0] + ox) * 4 + (loc[1] + oy)) * 4 + (loc[2] + oz);
-                float2 v = __bfloat1622float2(__ldg(r2 + corner));
-                a0 = __fadd_rn(a0, __fmul_rn(v.x, w));
-                a1 = __fadd_rn(a1, __fmul_rn(v.y, w));
-            }
-        }
-    }
-    f0 = a0;
-    f1 = a1;
-}
-
+// The brick encode of one head: two features per level, rounded to bf16.
 __device__ __forceinline__ void encode_head(
         const __nv_bfloat16* __restrict__ table, int rows, const int* lv,
         int n_levels, float nx, float ny, float nz, float* feat) {
 #pragma unroll
     for (int l = 0; l < MAX_LEVELS; ++l) {
         if (l < n_levels) {
-            float f0, f1;
-            encode_level(table + (size_t)l * rows * 128, rows, lv[3 * l],
-                         lv[3 * l + 1], lv[3 * l + 2], nx, ny, nz, f0, f1);
-            feat[2 * l] = bf16_round(f0);
-            feat[2 * l + 1] = bf16_round(f1);
+            const BrickCorner c = brick_locate(nx, ny, nz, lv[3 * l],
+                                               lv[3 * l + 1], lv[3 * l + 2], rows);
+            const float2 f = brick_interp(
+                c, table + ((size_t)l * rows + c.row) * 128);
+            feat[2 * l] = bf16_round(f.x);
+            feat[2 * l + 1] = bf16_round(f.y);
         } else {
             feat[2 * l] = 0.0f;
             feat[2 * l + 1] = 0.0f;

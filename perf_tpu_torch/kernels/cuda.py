@@ -5,8 +5,9 @@ library with a plain C interface and bound with ``ctypes``. Nothing is
 built or loaded at import: the first launch of a kernel builds it, and
 ``build_all`` builds every source at once, one ``nvcc`` process per source,
 all started together. Libraries land in ``build/kernels`` at the repository
-root (listed in ``.gitignore``), named by a hash of their source and flags,
-so an edited source is rebuilt and an unchanged one is reused.
+root (listed in ``.gitignore``), named by a hash of their source, the
+shared headers (``csrc/*.cuh``) and flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; ``CudaKernel.launch`` raises on a
@@ -47,8 +48,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+_LIBS: dict = {}            # library path -> loaded ctypes.CDLL
+_LIB_LOCK = threading.Lock()
+
+
 class CudaKernel:
-    """One ``csrc/<source>`` library and its C entry point ``symbol``.
+    """One C entry point ``symbol`` of the ``csrc/<source>`` library. Entry
+    points of one source with the same flags share one library.
 
     ``launches`` counts successful launches; nothing else increments it."""
 
@@ -62,7 +68,6 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._fn = None
-        self._lock = threading.Lock()
 
     @property
     def source_path(self) -> Path:
@@ -71,8 +76,9 @@ class CudaKernel:
     def _cmd(self):
         src = self.source_path
         flags = ARCH_FLAGS + BASE_FLAGS + self.extra_flags
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(src.read_bytes() + headers
+                                + " ".join(flags).encode()).hexdigest()[:12]
         out = BUILD_DIR / f"{src.stem}.{digest}.so"
         return [_nvcc(), *flags, "-o", str(out), str(src)], out
 
@@ -98,16 +104,19 @@ class CudaKernel:
         return log
 
     def _load(self):
-        with self._lock:
+        with _LIB_LOCK:
             if self._fn is None:
-                proc, out = self.start_build()
-                if proc is not None:
-                    self.build_log = self.finish_build(proc)
-                lib = ctypes.CDLL(str(out))
+                out = self._cmd()[1]
+                lib = _LIBS.get(out)
+                if lib is None:
+                    proc, out = self.start_build()
+                    if proc is not None:
+                        self.build_log = self.finish_build(proc)
+                    lib = _LIBS[out] = ctypes.CDLL(str(out))
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = self.argtypes + [P]
                 fn.restype = I32
-                self._lib, self._fn = lib, fn
+                self._fn = fn
         return self._fn
 
     def launch(self, *args):
@@ -132,16 +141,22 @@ def register(kernel: CudaKernel) -> CudaKernel:
 def build_all() -> dict:
     """Build every registered kernel's library in parallel; returns
     {name: nvcc log} (``-Xptxas -v`` register / spill report)."""
-    # each wrapper module registers its kernel when it is imported
+    # each wrapper module registers its kernels when it is imported
     from ..fields import ngp  # noqa: F401
-    from ..render import renderer, snapshot  # noqa: F401
-    started = [(k, *k.start_build()) for k in KERNELS.values()]
-    logs = {}
-    for k, proc, _ in started:
-        if proc is not None:
-            k.build_log = CudaKernel.finish_build(proc)
-        logs[k.name] = k.build_log
+    from ..kernels import brickgrid  # noqa: F401
+    from ..render import occgrid, renderer, snapshot  # noqa: F401
+    started = {}                     # one nvcc per library, all at once
     for k in KERNELS.values():
+        out = k._cmd()[1]
+        if out not in started:
+            started[out] = [k, k.start_build()[0], ""]
+    for entry in started.values():
+        if entry[1] is not None:
+            entry[2] = CudaKernel.finish_build(entry[1])
+    logs = {}
+    for k in KERNELS.values():
+        k.build_log = started[k._cmd()[1]][2]
+        logs[k.name] = k.build_log
         k._load()
     return logs
 

@@ -1,24 +1,34 @@
-"""The eval march: occupancy-culled, hierarchical, non-stratified.
+"""The occupancy march and the training composite.
 
-Counterpart of the eval half of ``perf_tpu/render/renderer.py``
-(``RenderConfig``, ``coarse_occ_grid``, ``_probe_points``,
-``count_occupied_windows``, ``_select_segments``,
-``_fine_windows_from_segments``, ``_windows_to_samples``, ``march_windows``
-/ ``march_rays`` with ``stratified=False``, ``beam_dilation`` and
-``frame_march_plan``). The march probes a 4x-pooled, dilated coarse grid
-once per segment of ``segment_windows`` windows, keeps the first
-``max_segments`` occupied segments, then probes the fine grid at every
-window of those and keeps the first ``max_windows`` occupied windows in t
-order.
+Counterpart of ``perf_tpu/render/renderer.py``: ``RenderConfig``,
+``coarse_occ_grid``, ``_probe_points``, ``count_occupied_windows``,
+``_select_segments``, ``_fine_windows_from_segments``,
+``_windows_to_samples``, ``march_windows`` / ``march_rays`` (eval and
+stratified), ``shade_rays`` with ``train=True``, ``render_rays``,
+``render_rays_bucketed``, ``beam_dilation`` and ``frame_march_plan``. The
+march probes a 4x-pooled, dilated coarse grid once per segment of
+``segment_windows`` windows, keeps the first ``max_segments`` occupied
+segments, then probes the fine grid at every window of those and keeps the
+first ``max_windows`` occupied windows in t order. The eval form of the
+field path (``render_image``) is not ported: eval frames go through the
+baked snapshot (``render/snapshot.py``).
 
-``march_windows`` is the CUDA kernel (``kernels/csrc/march_windows.cu``) for
-CUDA tensors and ``march_windows_plain`` for CPU tensors. The plain version
-follows the JAX code operation for operation (float32 throughout, the same
-``top_k`` compaction), so window indices agree exactly.
+Kernels for CUDA tensors, plain versions for CPU tensors:
+``march_windows`` and ``count_occupied_windows``
+(``kernels/csrc/march_windows.cu``), ``shade_composite``
+(``kernels/csrc/shade_composite.cu``, the composite and the distortion loss
+with their gradient). The plain march follows the JAX code operation for
+operation (float32 throughout, ``top_k`` with its tie order), so window
+indices agree exactly, in the invalid slots too.
+
+Randomness comes in as tensors: the march jitter [N, 1] and, per ray, the
+background colour draw [N, 3] and the distance-noise draw [N, 1] (uniforms
+in [0, 1)), so a test can hand both packages the same draws.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -26,21 +36,30 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import cuda
+from ..kernels.distortion import distortion_per_ray
+from ..kernels.hashgrid import level_strides
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """The eval fields of the JAX ``RenderConfig``; the training-only ones
-    (``bg_color``, ``occ_dilation``, ``eval_chunk``) come with the training
-    slice. Eval frames always take per-chunk adaptive sample budgets."""
+    """The JAX ``RenderConfig`` without the knobs of unported paths
+    (``remat``, ``eval_chunk``, ``eval_rgb_windows``, ``adaptive_eval``,
+    ``run_caps``) and of the flat march (``hier_march``: the march is always
+    hierarchical)."""
     near: float = 0.0
     far: float = 1.5
     step: float = 5e-4
     max_samples: int = 256
     occ_res: int = 256
+    # shell dilation of the pool's occupancy grid (occ_grid_from_points)
+    occ_dilation: int = 1
+    bg_color: str = "rand_noise"      # 'rand_noise' | 'white' | 'black'
     eval_bg_distance: float = 5.0
     march_coarse: int = 8
+    level_subsampling: bool = True
     segment_windows: int = 4
+    # rgb of a train step only at the top-K weight windows (0 = every sample)
+    train_rgb_windows: int = 4
     sample_stride: int = 1
 
     @property
@@ -75,6 +94,13 @@ class RenderConfig:
                    self.max_windows // self.segment_windows + 2)
 
 
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` along the last dim: descending, and among equal values
+    the lower index first (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def coarse_occ_grid(occ_grid: torch.Tensor, res: int,
                     dilate: int = 1) -> torch.Tensor:
     """4x max-pooled, (2*dilate+1)^3-dilated occupancy, flat uint8."""
@@ -96,10 +122,8 @@ def probe_points(occ_grid: torch.Tensor, rays_o: torch.Tensor,
     return occ_grid[flat].to(torch.int32)
 
 
-def count_occupied_windows(occ_grid, rays_o, rays_d, cfg: RenderConfig):
-    """Per-ray count of occupied windows over the full flat ladder, probed
-    at both jitter extremes (the adaptive-budget bound of unplanned
-    frames)."""
+def count_occupied_windows_plain(occ_grid, rays_o, rays_d,
+                                 cfg: RenderConfig) -> torch.Tensor:
     c = cfg.march_coarse
     wsteps = torch.arange(cfg.n_windows, dtype=torch.float32,
                           device=rays_o.device)
@@ -114,88 +138,139 @@ def count_occupied_windows(occ_grid, rays_o, rays_d, cfg: RenderConfig):
     return counts
 
 
+_COUNT = cuda.register(cuda.CudaKernel(
+    "count_windows", "march_windows.cu", "count_windows_launch",
+    [cuda.P, cuda.P, cuda.I64, cuda.P, cuda.I32, cuda.P, cuda.F32, cuda.F32,
+     cuda.F32, cuda.I32, cuda.I32],
+    extra_flags=("-fmad=false",)))
+
+
+def count_occupied_windows_cuda(occ_grid, rays_o, rays_d,
+                                cfg: RenderConfig) -> torch.Tensor:
+    n = rays_o.shape[0]
+    dev = rays_o.device
+    cuda.check(rays_o, "rays_o", torch.float32, (n, 3))
+    cuda.check(rays_d, "rays_d", torch.float32, (n, 3), dev)
+    cuda.check(occ_grid, "occ_grid", torch.uint8, (cfg.occ_res ** 3,), dev)
+    counts = torch.empty((n,), dtype=torch.int32, device=dev)
+    _COUNT.launch(rays_o.data_ptr(), rays_d.data_ptr(), n,
+                  occ_grid.data_ptr(), cfg.occ_res, counts.data_ptr(),
+                  float(cfg.near), float(cfg.far), float(cfg.step),
+                  cfg.march_coarse, cfg.n_windows)
+    return counts
+
+
+def count_occupied_windows(occ_grid, rays_o, rays_d, cfg: RenderConfig):
+    """Per-ray count of occupied windows over the full flat ladder, probed
+    at both jitter extremes (0 and 0.999): the bound that sizes the
+    per-episode sample budget. The kernel's count entry for CUDA tensors,
+    the plain version for CPU tensors."""
+    if rays_o.is_cuda:
+        return count_occupied_windows_cuda(occ_grid, rays_o, rays_d, cfg)
+    if rays_o.device.type != "cpu":
+        raise ValueError(f"count_occupied_windows: unsupported {rays_o.device}")
+    return count_occupied_windows_plain(occ_grid, rays_o, rays_d, cfg)
+
+
 def select_segments(coarse: torch.Tensor, rays_o, rays_d,
-                    cfg: RenderConfig):
+                    cfg: RenderConfig, jitter=None):
     """Coarse stage: (sidx int32 [N, max_segments], svalid bool)."""
     n = rays_o.shape[0]
     nseg, sw, c = cfg.n_segments, cfg.segment_windows, cfg.march_coarse
     segs = torch.arange(nseg, dtype=torch.float32, device=rays_o.device)
-    t_seg = (cfg.near + ((segs[None, :] * sw + 0.5 * sw) * c) * cfg.step
-             ).expand(n, -1)
+    t_seg = (segs[None, :] * sw + 0.5 * sw) * c
+    if jitter is not None:
+        t_seg = t_seg + jitter
+    t_seg = (cfg.near + t_seg * cfg.step).expand(n, -1)
     seg_occ = (probe_points(coarse, rays_o, rays_d, t_seg, cfg.occ_res // 4)
                * (t_seg < cfg.far))
     skeys = seg_occ * (nseg - torch.arange(nseg, dtype=torch.int32,
                                            device=rays_o.device))[None, :]
-    svals, sidx = torch.topk(skeys, cfg.max_segments, dim=1)
+    svals, sidx = top_k(skeys, cfg.max_segments)
     return sidx.to(torch.int32), svals > 0
 
 
 def fine_windows_from_segments(occ_grid, rays_o, rays_d, sidx, svalid,
-                               cfg: RenderConfig):
+                               cfg: RenderConfig, jitter=None):
     """Fine stage: probe the windows of the selected segments, keep the
     first ``max_windows`` occupied ones in t order."""
     n = rays_o.shape[0]
     c, sw = cfg.march_coarse, cfg.segment_windows
     j = torch.arange(sw, dtype=torch.int32, device=rays_o.device)
     widx_cand = (sidx[:, :, None] * sw + j[None, None, :]).reshape(n, -1)
-    t_w = cfg.near + (widx_cand.float() * c + 0.5 * c) * cfg.step
+    t_w = widx_cand.float() * c + 0.5 * c
+    if jitter is not None:
+        t_w = t_w + jitter
+    t_w = cfg.near + t_w * cfg.step
     occ_w = (probe_points(occ_grid, rays_o, rays_d, t_w, cfg.occ_res)
              * (t_w < cfg.far))
     occ_w = occ_w * svalid[:, :, None].to(torch.int32).expand(
         -1, -1, sw).reshape(n, -1)
     keys = occ_w * (cfg.n_windows - widx_cand)
-    vals, pos = torch.topk(keys, min(cfg.max_windows, keys.shape[1]), dim=1)
+    vals, pos = top_k(keys, min(cfg.max_windows, keys.shape[1]))
     wvalid = (vals > 0).float()
     widx = torch.gather(widx_cand, 1, pos)
     return widx.to(torch.int32), wvalid
 
 
-def windows_to_samples(widx, wvalid, cfg: RenderConfig):
-    """Expand selected windows into per-sample (t_mid, valid)."""
+def windows_to_samples(widx, wvalid, cfg: RenderConfig, jitter=None):
+    """Expand selected windows into per-sample (t_mid, valid); ``jitter``
+    [N, 1] shifts every sample of a ray by jitter * sample_stride steps."""
     n = widx.shape[0]
     st, spw = cfg.sample_stride, cfg.samples_per_window
     fine = (torch.arange(spw, dtype=torch.float32, device=widx.device)
             + 0.5) * st
-    t_mid = (cfg.near + ((widx.float() * cfg.march_coarse)[:, :, None]
-                         + fine[None, None, :]) * cfg.step).reshape(n, -1)
+    t = (widx.float() * cfg.march_coarse)[:, :, None] + fine[None, None, :]
+    if jitter is not None:
+        t = t + jitter[:, :, None] * st
+    t_mid = (cfg.near + t * cfg.step).reshape(n, -1)
     valid = wvalid[:, :, None].expand(-1, -1, spw).reshape(n, -1)
     return t_mid, valid * (t_mid < cfg.far)
 
 
 def march_windows_plain(occ_grid, rays_o, rays_d, cfg: RenderConfig,
-                        coarse=None, segments=None):
+                        coarse=None, segments=None, jitter=None):
     """-> (widx, wvalid, counts, sidx, svalid). ``segments`` = (sidx,
     svalid) skips the coarse stage (planned chunks); else ``coarse`` is the
-    pooled, dilated coarse grid."""
+    pooled, dilated coarse grid. ``jitter`` [N, 1] is the stratified form."""
     if segments is None:
-        sidx, svalid = select_segments(coarse, rays_o, rays_d, cfg)
+        sidx, svalid = select_segments(coarse, rays_o, rays_d, cfg, jitter)
     else:
         sidx, svalid = segments
     widx, wvalid = fine_windows_from_segments(occ_grid, rays_o, rays_d,
-                                              sidx, svalid, cfg)
+                                              sidx, svalid, cfg, jitter)
     counts = wvalid.to(torch.int32).sum(dim=1, dtype=torch.int32)
     return widx, wvalid, counts, sidx, svalid
 
 
-_MARCH = cuda.register(cuda.CudaKernel(
-    "march_windows", "march_windows.cu", "march_windows_launch",
-    [cuda.P, cuda.P, cuda.I64, cuda.P, cuda.I32, cuda.P, cuda.I32, cuda.P,
-     cuda.P, cuda.I32, cuda.P, cuda.P, cuda.I32, cuda.P, cuda.P, cuda.I32,
-     cuda.P, cuda.F32, cuda.F32, cuda.F32, cuda.I32, cuda.I32, cuda.I32,
-     cuda.I32],
-    extra_flags=("-fmad=false",)))
+def _register_march():
+    """The eval and stratified forms: one C entry point, counted apart."""
+    args = [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.P, cuda.I32, cuda.P,
+            cuda.I32, cuda.P, cuda.P, cuda.I32, cuda.P, cuda.P, cuda.I32,
+            cuda.P, cuda.P, cuda.I32, cuda.P, cuda.F32, cuda.F32, cuda.F32,
+            cuda.I32, cuda.I32, cuda.I32, cuda.I32]
+    return tuple(cuda.register(cuda.CudaKernel(
+        name, "march_windows.cu", "march_windows_launch", args,
+        extra_flags=("-fmad=false",)))
+        for name in ("march_windows", "march_windows_stratified"))
+
+
+_MARCH, _MARCH_STRATIFIED = _register_march()
 
 
 def march_windows_cuda(occ_grid, rays_o, rays_d, cfg: RenderConfig,
-                       coarse=None, segments=None):
+                       coarse=None, segments=None, jitter=None):
     dev = rays_o.device
     n = rays_o.shape[0]
     res, cres = cfg.occ_res, cfg.occ_res // 4
-    if res % 4:
-        raise ValueError(f"occ_res {res} must be a multiple of 4")
     cuda.check(rays_o, "rays_o", torch.float32, (n, 3))
     cuda.check(rays_d, "rays_d", torch.float32, (n, 3), dev)
     cuda.check(occ_grid, "occ_grid", torch.uint8, (res ** 3,), dev)
+    jit_ptr = None
+    if jitter is not None:
+        jitter = jitter.reshape(n).contiguous()
+        cuda.check(jitter, "jitter", torch.float32, (n,), dev)
+        jit_ptr = jitter.data_ptr()
     i32 = dict(dtype=torch.int32, device=dev)
     if segments is None:
         cuda.check(coarse, "coarse", torch.uint8, (cres ** 3,), dev)
@@ -215,9 +290,9 @@ def march_windows_cuda(occ_grid, rays_o, rays_d, cfg: RenderConfig,
     widx = torch.empty((n, k), **i32)
     wvalid = torch.empty((n, k), dtype=torch.float32, device=dev)
     counts = torch.empty((n,), **i32)
-    _MARCH.launch(
-        rays_o.data_ptr(), rays_d.data_ptr(), n, occ_grid.data_ptr(), res,
-        coarse_ptr, cres, sidx_in, svalid_in, s_in,
+    (_MARCH if jitter is None else _MARCH_STRATIFIED).launch(
+        rays_o.data_ptr(), rays_d.data_ptr(), jit_ptr, n, occ_grid.data_ptr(),
+        res, coarse_ptr, cres, sidx_in, svalid_in, s_in,
         sidx.data_ptr() if segments is None else None,
         svalid.data_ptr() if segments is None else None, s_sel,
         widx.data_ptr(), wvalid.data_ptr(), k, counts.data_ptr(),
@@ -227,24 +302,247 @@ def march_windows_cuda(occ_grid, rays_o, rays_d, cfg: RenderConfig,
 
 
 def march_windows(occ_grid, rays_o, rays_d, cfg: RenderConfig, coarse=None,
-                  segments=None):
+                  segments=None, jitter=None):
     """Window selection for rays [N, 3] -> (widx int32 [N, K], wvalid f32
     [N, K], counts int32 [N], sidx int32 [N, S], svalid bool [N, S]).
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    ``jitter`` [N, 1] in [0, 1) is the stratified (training) form, None the
+    eval form. The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if cfg.occ_res % 4:
+        raise ValueError(f"occ_res {cfg.occ_res}: the hierarchical march "
+                         "needs a multiple of 4 (the flat march is not ported)")
     if rays_o.is_cuda:
         return march_windows_cuda(occ_grid, rays_o, rays_d, cfg, coarse,
-                                  segments)
+                                  segments, jitter)
     if rays_o.device.type != "cpu":
         raise ValueError(f"march_windows: unsupported device {rays_o.device}")
     return march_windows_plain(occ_grid, rays_o, rays_d, cfg, coarse,
-                               segments)
+                               segments, jitter)
 
 
-def march_rays(occ_grid, rays_o, rays_d, cfg: RenderConfig):
-    """Non-stratified march -> (t_mid [N, S] ascending, valid [N, S])."""
-    coarse = coarse_occ_grid(occ_grid, cfg.occ_res)
-    widx, wvalid = march_windows(occ_grid, rays_o, rays_d, cfg, coarse)[:2]
-    return windows_to_samples(widx, wvalid, cfg)
+def march_rays(occ_grid, rays_o, rays_d, cfg: RenderConfig, jitter=None,
+               coarse=None):
+    """-> (t_mid [N, S] ascending, valid [N, S]); stratified with
+    ``jitter`` [N, 1]."""
+    if coarse is None:
+        coarse = coarse_occ_grid(occ_grid, cfg.occ_res)
+    widx, wvalid = march_windows(occ_grid, rays_o, rays_d, cfg, coarse,
+                                 jitter=jitter)[:2]
+    return windows_to_samples(widx, wvalid, cfg, jitter)
+
+
+# -- the training composite ------------------------------------------------------
+
+def shade_composite_plain(sigma, t_mid, valid, delta: float):
+    """-> (weights, opacity [N, 1], distance [N, 1], dist_loss [N]): the
+    compositing of ``shade_rays`` (renderer.py:384-390) and
+    ``distortion_per_ray``, differentiable by autograd."""
+    tau = sigma * delta
+    trans = torch.exp(-(torch.cumsum(tau, dim=-1) - tau))
+    alpha = 1.0 - torch.exp(-tau)
+    weights = trans * alpha
+    opacity = torch.sum(weights, dim=-1, keepdim=True)
+    distance = torch.sum(weights * t_mid, dim=-1, keepdim=True)
+    dist_loss = distortion_per_ray(weights, t_mid, delta, valid)
+    return weights, opacity, distance, dist_loss
+
+
+_SHADE = cuda.register(cuda.CudaKernel(
+    "shade_composite", "shade_composite.cu", "shade_composite_fwd_launch",
+    [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.F32, cuda.P, cuda.P,
+     cuda.P, cuda.P, cuda.P]))
+_SHADE_BWD = cuda.register(cuda.CudaKernel(
+    "shade_composite_bwd", "shade_composite.cu", "shade_composite_bwd_launch",
+    [cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.F32,
+     cuda.P, cuda.P, cuda.P, cuda.P, cuda.P]))
+
+
+def _check_samples(*named):
+    ref = named[0][1]
+    for name, t in named:
+        cuda.check(t, name, torch.float32, tuple(ref.shape), ref.device)
+
+
+def shade_composite_cuda(sigma, t_mid, valid, delta: float):
+    """Kernel forward -> (weights, trans, opacity [N, 1], distance [N, 1],
+    dist_loss [N])."""
+    _check_samples(("sigma", sigma), ("t_mid", t_mid), ("valid", valid))
+    n, s = sigma.shape
+    f32 = dict(dtype=torch.float32, device=sigma.device)
+    weights, trans = torch.empty((n, s), **f32), torch.empty((n, s), **f32)
+    opacity, distance = torch.empty((n, 1), **f32), torch.empty((n, 1), **f32)
+    dist_loss = torch.empty((n,), **f32)
+    _SHADE.launch(sigma.data_ptr(), t_mid.data_ptr(), valid.data_ptr(), n, s,
+                  float(delta), weights.data_ptr(), trans.data_ptr(),
+                  opacity.data_ptr(), distance.data_ptr(), dist_loss.data_ptr())
+    return weights, trans, opacity, distance, dist_loss
+
+
+def shade_composite_grad_cuda(sigma, t_mid, valid, weights, trans,
+                              delta: float, g_op, g_dist, g_dl):
+    """Kernel backward: dsigma [N, S] from the cotangents of opacity,
+    distance and dist_loss."""
+    _check_samples(("sigma", sigma), ("t_mid", t_mid), ("valid", valid),
+                   ("weights", weights), ("trans", trans))
+    n, s = sigma.shape
+    grads = [g.reshape(n).contiguous() for g in (g_op, g_dist, g_dl)]
+    for name, g in zip(("g_opacity", "g_distance", "g_dist_loss"), grads):
+        cuda.check(g, name, torch.float32, (n,), sigma.device)
+    scratch = torch.empty((n, s, 2), dtype=torch.float32, device=sigma.device)
+    g_sigma = torch.empty((n, s), dtype=torch.float32, device=sigma.device)
+    _SHADE_BWD.launch(sigma.data_ptr(), t_mid.data_ptr(), valid.data_ptr(),
+                      weights.data_ptr(), trans.data_ptr(), n, s,
+                      float(delta), grads[0].data_ptr(), grads[1].data_ptr(),
+                      grads[2].data_ptr(), scratch.data_ptr(),
+                      g_sigma.data_ptr())
+    return g_sigma
+
+
+class _ShadeComposite(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sigma, t_mid, valid, delta):
+        weights, trans, opacity, distance, dist_loss = shade_composite_cuda(
+            sigma, t_mid, valid, delta)
+        ctx.mark_non_differentiable(weights)
+        ctx.save_for_backward(sigma, t_mid, valid, weights, trans)
+        ctx.delta = delta
+        return weights, opacity, distance, dist_loss
+
+    @staticmethod
+    def backward(ctx, _g_weights, g_op, g_dist, g_dl):
+        sigma, t_mid, valid, weights, trans = ctx.saved_tensors
+        g_sigma = shade_composite_grad_cuda(sigma, t_mid, valid, weights,
+                                            trans, ctx.delta, g_op, g_dist,
+                                            g_dl)
+        return g_sigma, None, None, None
+
+
+def shade_composite(sigma, t_mid, valid, delta: float):
+    """Training composite of masked densities sigma [N, S] at t_mid with
+    valid [N, S]: (weights [N, S] (no gradient), opacity [N, 1], distance
+    [N, 1], dist_loss [N]), differentiable in sigma. The ``shade_composite``
+    kernels for CUDA tensors, the plain version for CPU tensors."""
+    if sigma.is_cuda:
+        return _ShadeComposite.apply(sigma.contiguous(), t_mid.contiguous(),
+                                     valid.contiguous(), float(delta))
+    if sigma.device.type != "cpu":
+        raise ValueError(f"shade_composite: unsupported {sigma.device}")
+    weights, opacity, distance, dist_loss = shade_composite_plain(
+        sigma, t_mid, valid, delta)
+    return weights.detach(), opacity, distance, dist_loss
+
+
+def _strides(field_cfg, cfg: RenderConfig, n_samples: int) -> tuple:
+    if cfg.level_subsampling:
+        return level_strides(field_cfg.grid, cfg.step, n_samples)
+    return (1,) * field_cfg.grid.n_levels
+
+
+def shade_rays(params: dict, field_cfg, rays_o, rays_d, t_mid, valid,
+               cfg: RenderConfig, bg, noise_u, stop_geo_grad: bool = False,
+               stop_app_grad: bool = False, need_rgb: bool = True) -> dict:
+    """Training shade of pre-marched samples (``shade_rays`` with
+    ``train=True``): density at every sample, the composite and distortion
+    loss, colour from the top ``train_rgb_windows`` weight windows with
+    detached weights, the random colour background over the detached
+    transparency, and the distance noise through a relu over the
+    non-detached one. ``bg`` [N, 3] and ``noise_u`` [N, 1] are uniform
+    draws in [0, 1)."""
+    from ..fields.ngp import query_density_ray, query_rgb_ray
+    px, py, pz = (rays_o[:, a:a + 1] + rays_d[:, a:a + 1] * t_mid
+                  for a in range(3))
+    n, s = t_mid.shape
+    no_grad = torch.no_grad if stop_geo_grad else contextlib.nullcontext
+    with no_grad():
+        sigma = query_density_ray(params["geo"], px, py, pz, field_cfg,
+                                  _strides(field_cfg, cfg, s))
+    # where-select, not multiply: a saturated density at a padding sample
+    # must give 0, never inf * 0 = NaN
+    sigma = torch.where(valid > 0.0, sigma, torch.zeros_like(sigma))
+    weights, opacity, distance, dist_loss = shade_composite(
+        sigma, t_mid, valid, cfg.step * cfg.sample_stride)
+
+    if need_rgb:
+        kw, c = cfg.train_rgb_windows, cfg.samples_per_window
+        no_grad = torch.no_grad if stop_app_grad else contextlib.nullcontext
+        if kw and kw * c < s:
+            wwin = weights.reshape(n, -1, c).sum(dim=-1)
+            widx = torch.sort(top_k(wwin, kw)[1], dim=1).values
+            sidx = (widx[:, :, None] * c + torch.arange(
+                c, device=widx.device)[None, None, :]).reshape(n, kw * c)
+            pk = [torch.gather(p, 1, sidx) for p in (px, py, pz)]
+            with no_grad():
+                r, g, b = query_rgb_ray(params["app"], *pk, field_cfg,
+                                        _strides(field_cfg, cfg, kw * c))
+            w_det = torch.gather(weights, 1, sidx)
+        else:
+            with no_grad():
+                r, g, b = query_rgb_ray(params["app"], px, py, pz, field_cfg,
+                                        _strides(field_cfg, cfg, s))
+            w_det = weights
+        colors = torch.stack([torch.sum(w_det * r, dim=-1),
+                              torch.sum(w_det * g, dim=-1),
+                              torch.sum(w_det * b, dim=-1)], dim=-1)
+    else:
+        colors = torch.zeros((n, 3), dtype=torch.float32, device=t_mid.device)
+    if cfg.bg_color == "rand_noise":
+        bg_c = bg
+    elif cfg.bg_color == "white":
+        bg_c = torch.ones_like(colors)
+    else:
+        bg_c = torch.zeros_like(colors)
+    noise = noise_u * 2.0 - 1.0
+    distance = torch.relu(distance + noise * (1.0 - opacity))
+    colors = colors + bg_c * (1.0 - opacity).detach()
+    return {"rgb": colors, "distance": distance, "opacity": opacity,
+            "weights": weights, "t_mid": t_mid, "valid": valid,
+            "dist_loss": dist_loss}
+
+
+def render_rays(params: dict, field_cfg, occ_grid, rays_o, rays_d,
+                cfg: RenderConfig, draws: dict, coarse=None, **flags) -> dict:
+    """Stratified march + training shade of a flat batch [N, 3]
+    (``render_rays`` with ``train=True``). ``draws``: ``jitter`` [N, 1],
+    ``bg`` [N, 3], ``noise`` [N, 1] uniforms."""
+    t_mid, valid = march_rays(occ_grid, rays_o, rays_d, cfg,
+                              draws["jitter"], coarse)
+    return shade_rays(params, field_cfg, rays_o, rays_d, t_mid, valid, cfg,
+                      draws["bg"], draws["noise"], **flags)
+
+
+def render_rays_bucketed(params: dict, field_cfg, occ_grid, rays_o, rays_d,
+                         cfg: RenderConfig, s_low: int, n_high: int,
+                         draws: dict, coarse=None, **flags) -> dict:
+    """Two-budget training batch (``render_rays_bucketed``): march, sort
+    the rays by occupied-window count (stable), shade the ``n - n_high``
+    lowest at ``s_low`` samples and the rest at the full budget, restore
+    ray order. ``draws`` as ``render_rays``, with ``bg`` and ``noise`` in
+    sorted (bucket) order: the low bucket's rows first."""
+    n = rays_o.shape[0]
+    spw = cfg.samples_per_window
+    if s_low % spw or not 0 < n_high < n:
+        raise ValueError(f"bad bucket plan s_low={s_low} n_high={n_high}")
+    if coarse is None:
+        coarse = coarse_occ_grid(occ_grid, cfg.occ_res)
+    jitter = draws["jitter"]
+    widx, wvalid, counts = march_windows(occ_grid, rays_o, rays_d, cfg,
+                                         coarse, jitter=jitter)[:3]
+    order = torch.argsort(counts, stable=True)
+    inv = torch.argsort(order, stable=True)
+    o_s, d_s = rays_o[order], rays_d[order]
+    widx_s, wvalid_s, jit_s = widx[order], wvalid[order], jitter[order]
+    n_low = n - n_high
+
+    def bucket(sl, w_budget):
+        t_b, v_b = windows_to_samples(widx_s[sl, :w_budget],
+                                      wvalid_s[sl, :w_budget], cfg, jit_s[sl])
+        return shade_rays(params, field_cfg, o_s[sl], d_s[sl], t_b, v_b, cfg,
+                          draws["bg"][sl], draws["noise"][sl], **flags)
+
+    out_lo = bucket(slice(0, n_low), s_low // spw)
+    out_hi = bucket(slice(n_low, n), widx.shape[1])
+    return {k: torch.cat([out_lo[k], out_hi[k]])[inv]
+            for k in ("rgb", "distance", "opacity", "dist_loss")}
 
 
 def beam_dilation(rays_d: torch.Tensor, cfg: RenderConfig) -> int:

@@ -1,2 +1,4 @@
 from .checkpoint import save_checkpoint, load_checkpoint
-from .scene import NeRFScene
+from .schedule import OptimConfig, lr_at, smooth_l1
+from .sup_pool import PanoSupInfo, SupInfoPool, build_pano_sup_info
+from .scene import NeRFScene, TrainConfig

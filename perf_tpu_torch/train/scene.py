@@ -1,42 +1,298 @@
-"""NeRFScene, serving subset: the field, its occupancy grid and the baked
-snapshot.
+"""NeRFScene: the per-episode training state machine, the baked snapshot.
 
-Counterpart of ``perf_tpu/train/scene.py`` (``__init__``, ``state_dict`` /
-``load_state_dict``, ``bake_snapshot``, ``render_snapshot``). The state
-dict has the JAX package's keys and layout, so a ``perf_tpu`` run
-checkpoint loads here unchanged. ``fit`` comes with the training slice.
+Counterpart of ``perf_tpu/train/scene.py`` (``TrainConfig``, ``__init__``,
+``_sample_batch``, ``select_sample_budget``, ``_get_phase_fn``, the geo and
+app steps, ``_run_phase``, ``fit``, ``bake_snapshot``, ``render_snapshot``,
+``state_dict`` / ``load_state_dict``). One ``fit(pool)`` episode:
+
+1. the occupancy grid from the pool's back-projected points (the
+   ``occ_grid`` kernel), fixed for the episode;
+2. a fresh geometry head;
+3. the per-episode sample budget and bucket plan, from the occupied-window
+   counts of 16,384 pool rays (the one host read-back of the episode);
+4. the geometry phase: depth smooth-L1 (beta 1e-2) plus the ramped
+   distortion loss, appearance frozen;
+5. the appearance phase: colour smooth-L1 (beta 5e-2), geometry frozen;
+
+each step a guarded Adam step on a fresh per-phase Adam, with the
+trapezoid + cosine LR. A step reads nothing back to the host: the losses
+of a phase stay on the device until the phase ends. The random draws of a
+step (batch indices, march jitter, backgrounds, distance noise) come from
+a ``torch.Generator`` on the scene's device.
+
+The state dict has the JAX package's keys and layout, so a checkpoint
+written by either package loads in the other. Not ported: the ``vis_freq``
+previews (the field-path render) and ``_field_prune_occ``
+(``occ_field_prune`` from the second episode on); each is refused.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..convert import occ_grid_from_jax, params_from_jax, params_to_numpy
 from ..core import Rays
-from ..fields import NGPFieldConfig, init_ngp_params
+from ..core.optim import GuardedAdam
+from ..fields import NGPFieldConfig, init_ngp_params, reset_geo
+from ..fields.ngp import query_density_ray
 from ..render import RenderConfig
+from ..render.renderer import (coarse_occ_grid, count_occupied_windows,
+                               render_rays, render_rays_bucketed)
 from ..render.snapshot import (SnapshotConfig, bake_snapshot,
                                render_snapshot_image)
+from ..utils.metrics import MetricsWriter, phase_timer
+from .schedule import OptimConfig, lr_at, smooth_l1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    raw_phase_iter_geo: int = 3000
+    raw_phase_iter_app: int = 1500
+    pixel_loss_batch_size: int = 8192
+    color_loss_weight: float = 1.0
+    depth_loss_weight: float = 1.0
+    distortion_loss_weight: float = 0.1
+    density_loss_weight: float = 0.0
+    geo_optimizer: OptimConfig = OptimConfig()
+    app_optimizer: OptimConfig = OptimConfig()
+    # two-budget batches (render_rays_bucketed), planned per episode
+    bucket_train: bool = True
+    # in-window sample strides of the two phases (the march ladder is
+    # unchanged; engaged only where they divide the window and the budget)
+    app_sample_stride: int = 2
+    geo_sample_stride: int = 2
+    # prune the pool shell with the previous episode's field: reachable
+    # only from the second episode on, which needs the anchor slice
+    occ_field_prune: bool = False
+    # mid-episode previews every vis_freq steps: not ported, refused when
+    # one would fire inside an episode
+    vis_freq: int = 0
+
+
+def _leaves(head: dict) -> list:
+    return [head["table"]] + list(head["mlp"]["w"])
 
 
 class NeRFScene:
-    """Owns field params, the occupancy grid and the bake, on one device."""
+    """Owns field params, the occupancy grid, the training state and the
+    bake, on one device."""
 
     def __init__(self, field_cfg: NGPFieldConfig, render_cfg: RenderConfig,
                  generator: torch.Generator, device: torch.device,
-                 snap_cfg: SnapshotConfig | None = None):
+                 snap_cfg: SnapshotConfig | None = None,
+                 train_cfg: TrainConfig | None = None,
+                 writer: MetricsWriter | None = None):
         self.field_cfg = field_cfg
         self.render_cfg = render_cfg
+        self.train_cfg = train_cfg or TrainConfig()
         self.device = torch.device(device)
+        self.writer = writer or MetricsWriter(None)
+        # host generator: parameter init; device generator: step draws
+        self.generator = generator
         self.params = init_ngp_params(generator, field_cfg, self.device)
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+        self.draw_gen = torch.Generator(device=self.device).manual_seed(seed)
         self.occ_grid = torch.zeros((render_cfg.occ_res ** 3,),
                                     dtype=torch.uint8, device=self.device)
         self.global_iter_geo = 0
         self.global_iter_app = 0
         self.sample_budget: int | None = None
+        self.bucket_plan: tuple | None = None
         # baked table (render/snapshot.py); stale whenever the field changes
         self.snapshot: torch.Tensor | None = None
         self.snap_cfg = snap_cfg or SnapshotConfig()
+        # the grid the previous episode trained through (occ_field_prune)
+        self._prev_occ: torch.Tensor | None = None
+
+    # -- sampling and budgets ------------------------------------------------
+
+    def _uniform(self, *shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self.draw_gen, device=self.device)
+
+    def _sample_batch(self, arrs: dict, u: torch.Tensor):
+        """Batch rows floor(u * n_valid) of the padded pool arrays."""
+        n = arrs["n_valid"]
+        idx = torch.clamp((u * n).to(torch.int32), max=n - 1).long()
+        return (arrs["rays_o"][idx], arrs["rays_d"][idx], arrs["colors"][idx],
+                arrs["distances"][idx])
+
+    def select_sample_budget(self, arrs: dict, probe_rays: int = 16384) -> int:
+        """Smallest safe ``max_samples`` for the episode's occupancy grid
+        and the two-budget bucket plan: the occupied-window counts of a
+        uniform subsample of the pool over the full ladder, +1 window of
+        slack, rounded up to a multiple of 16 samples."""
+        rc, tc = self.render_cfg, self.train_cfg
+        n_valid = arrs["n_valid"]
+        n = min(probe_rays, n_valid)
+        idx = torch.from_numpy(np.linspace(0, n_valid - 1, n).astype(
+            np.int64)).to(self.device)
+        counts = count_occupied_windows(
+            self.occ_grid, arrs["rays_o"][idx].contiguous(),
+            arrs["rays_d"][idx].contiguous(), rc).cpu().numpy()
+        mc = rc.march_coarse
+        worst = int(counts.max()) + 1
+        budget = max(4 * mc, -(-worst * mc // 16) * 16)
+        budget = min(rc.max_samples, budget)
+
+        self.bucket_plan = None
+        if tc.bucket_train:
+            batch = tc.pixel_loss_batch_size
+            w_low = int(np.percentile(counts, 98.0)) + 1
+            s_low = max(4 * mc, -(-w_low * mc // 16) * 16)
+            n_high = max(64, batch // 8)
+            frac_high = float(np.mean(counts > s_low // mc))
+            if s_low < budget and n_high < batch \
+                    and frac_high * batch * 8.0 <= n_high:
+                self.bucket_plan = (s_low, n_high)
+        return budget
+
+    def phase_render_cfg(self, phase: str):
+        """(RenderConfig, bucket plan or None) of a phase: the episode
+        budget, and the phase's sample stride where it divides the window
+        and the budget (``_get_phase_fn``)."""
+        tc = self.train_cfg
+        budget = self.sample_budget or self.render_cfg.max_samples
+        plan = self.bucket_plan if tc.bucket_train else None
+        rc = dataclasses.replace(self.render_cfg, max_samples=budget)
+        stride = tc.app_sample_stride if phase == "app" else tc.geo_sample_stride
+        if (stride > 1 and rc.march_coarse % stride == 0
+                and budget % (2 * stride) == 0):
+            rc = dataclasses.replace(rc, sample_stride=stride,
+                                     max_samples=budget // stride)
+            if plan:
+                plan = (max(4 * rc.samples_per_window, plan[0] // stride),
+                        plan[1])
+        return rc, plan
+
+    # -- steps -----------------------------------------------------------------
+
+    def _render(self, geo, app, rc, plan, coarse, o, d, **flags):
+        b = o.shape[0]
+        draws = {"jitter": self._uniform(b, 1), "bg": self._uniform(b, 3),
+                 "noise": self._uniform(b, 1)}
+        params = {"geo": geo, "app": app}
+        if plan:
+            return render_rays_bucketed(params, self.field_cfg, self.occ_grid,
+                                        o, d, rc, plan[0], plan[1], draws,
+                                        coarse, **flags)
+        return render_rays(params, self.field_cfg, self.occ_grid, o, d, rc,
+                           draws, coarse, **flags)
+
+    def _geo_loss(self, geo, app, rc, plan, coarse, arrs, i: int):
+        tc = self.train_cfg
+        o, d, _, gt_dist = self._sample_batch(
+            arrs, self._uniform(tc.pixel_loss_batch_size))
+        out = self._render(geo, app, rc, plan, coarse, o, d,
+                           stop_app_grad=True, need_rgb=False)
+        depth_l = smooth_l1(out["distance"], gt_dist, beta=1e-2)
+        dist_l = torch.mean(out["dist_loss"])
+        # the distortion ramp counts app-phase iterations (reference quirk)
+        ratio = min(i / tc.raw_phase_iter_app * 2.0, 1.0)
+        loss = (depth_l * tc.depth_loss_weight
+                + dist_l * tc.distortion_loss_weight * ratio)
+        if tc.density_loss_weight > 1e-7:
+            pts = (self._uniform(8192, 3) * 2 - 1) * 0.99
+            dens = query_density_ray(geo, pts[:, :1], pts[:, 1:2], pts[:, 2:],
+                                     self.field_cfg,
+                                     (1,) * self.field_cfg.grid.n_levels)
+            loss = loss + tc.density_loss_weight * torch.mean(dens)
+        return loss, (depth_l, dist_l)
+
+    def _app_loss(self, app, geo, rc, plan, coarse, arrs, i: int):
+        tc = self.train_cfg
+        o, d, gt_col, _ = self._sample_batch(
+            arrs, self._uniform(tc.pixel_loss_batch_size))
+        out = self._render(geo, app, rc, plan, coarse, o, d,
+                           stop_geo_grad=True)
+        color_l = smooth_l1(out["rgb"], gt_col, beta=5e-2)
+        return color_l * tc.color_loss_weight, (color_l,)
+
+    def phase_steps(self, phase: str, arrs: dict, n_iters: int):
+        """The state of one phase (its render config and bucket plan, the
+        episode's coarse grid, the trained leaves and a fresh Adam) with a
+        ``step(i)`` that runs step i of ``n_iters``."""
+        return _PhaseSteps(self, phase, arrs, n_iters)
+
+    def _run_phase(self, phase: str, arrs: dict, n_iters: int) -> np.ndarray:
+        """``n_iters`` guarded Adam steps of one phase. Returns the losses
+        [n_iters, 5] (geo: loss, depth, distortion, lr, finite) or [n_iters,
+        4] (app: loss, colour, lr, finite), read back once at the end."""
+        rows, lrs = [], []
+        with self.phase_steps(phase, arrs, n_iters) as steps:
+            for i in range(n_iters):
+                row, lr = steps.step(i)
+                rows.append(row)
+                lrs.append(lr)
+        vals = torch.stack(rows).cpu().numpy()
+        losses = np.concatenate([vals[:, :-1],
+                                 np.asarray(lrs, np.float32)[:, None],
+                                 vals[:, -1:]], axis=1)
+
+        skipped = int((losses[:, -1] == 0.0).sum())
+        step0 = self.global_iter_geo if phase == "geo" else self.global_iter_app
+        if skipped:
+            print(f"[perf_tpu_torch] WARNING: {phase} phase skipped {skipped} "
+                  f"non-finite-grad step(s) of {n_iters}", flush=True)
+            self.writer.add_scalars(
+                {f"others/skipped_steps_{phase}": float(skipped)}, step0)
+        every = max(n_iters // 30, 1)
+        for j in range(0, n_iters, every):
+            if phase == "geo":
+                scalars = {"nerf_loss/depth_loss": losses[j, 1],
+                           "nerf_loss/dist_loss": losses[j, 2],
+                           "others/lr_geo": losses[j, 3]}
+            else:
+                scalars = {"nerf_loss/color_loss": losses[j, 1],
+                           "others/lr_app": losses[j, 2]}
+            self.writer.add_scalars(scalars, step0 + j)
+        if phase == "geo":
+            self.global_iter_geo += n_iters
+        else:
+            self.global_iter_app += n_iters
+        return losses
+
+    # -- public API ------------------------------------------------------------
+
+    def fit(self, sup_pool) -> dict:
+        """One training episode over the current pool."""
+        tc, rc = self.train_cfg, self.render_cfg
+        for phase, base, n in (("geo", self.global_iter_geo,
+                                tc.raw_phase_iter_geo),
+                               ("app", self.global_iter_app,
+                                tc.raw_phase_iter_app)):
+            if tc.vis_freq and (base + n) // tc.vis_freq > base // tc.vis_freq:
+                raise ValueError(
+                    f"vis_freq={tc.vis_freq} would preview inside the {phase} "
+                    "phase; the previews (field-path render) are not ported")
+        if tc.occ_field_prune and self._prev_occ is not None \
+                and self.global_iter_geo > 0:
+            raise ValueError("occ_field_prune on a second episode needs "
+                             "_field_prune_occ, which is not ported")
+        occ = sup_pool.gen_occ_grid(rc.occ_res, rc.occ_dilation, self.device)
+        self._prev_occ = occ
+        self.occ_grid = occ
+        self.params = reset_geo(self.params, self.generator, self.field_cfg,
+                                self.device)
+        arrs = sup_pool.device_arrays(self.device)
+        self.sample_budget = self.select_sample_budget(arrs)
+        self.snapshot = None
+        plan = self.bucket_plan or (0, 0)
+        self.writer.add_scalars(
+            {"budget/max_samples": self.sample_budget,
+             "budget/bucket_s_low": plan[0],
+             "budget/bucket_n_high": plan[1]}, self.global_iter_geo)
+        n_rays = tc.pixel_loss_batch_size
+        with phase_timer(self.writer, "fit_geo", self.global_iter_geo,
+                         tc.raw_phase_iter_geo * n_rays, "rays"):
+            geo_losses = self._run_phase("geo", arrs, tc.raw_phase_iter_geo)
+        with phase_timer(self.writer, "fit_app", self.global_iter_app,
+                         tc.raw_phase_iter_app * n_rays, "rays"):
+            app_losses = self._run_phase("app", arrs, tc.raw_phase_iter_app)
+        self.writer.flush()
+        return {"geo_losses": geo_losses, "app_losses": app_losses}
 
     def bake_snapshot(self):
         """Bake the current field into the dense snapshot table."""
@@ -71,3 +327,44 @@ class NeRFScene:
         self.global_iter_geo = int(state["global_iter_geo"])
         self.global_iter_app = int(state["global_iter_app"])
         self.sample_budget = int(state.get("sample_budget", 0)) or None
+
+
+class _PhaseSteps:
+    """One training phase: see ``NeRFScene.phase_steps``. Used as a context
+    manager, so the trained leaves stop requiring gradients afterwards."""
+
+    def __init__(self, scene: NeRFScene, phase: str, arrs: dict,
+                 n_iters: int):
+        tc = scene.train_cfg
+        self.scene, self.arrs, self.n_iters = scene, arrs, n_iters
+        self.rc, self.plan = scene.phase_render_cfg(phase)
+        self.coarse = coarse_occ_grid(scene.occ_grid, self.rc.occ_res)
+        train_key, frozen_key = (("geo", "app") if phase == "geo"
+                                 else ("app", "geo"))
+        self.train = scene.params[train_key]
+        self.frozen = scene.params[frozen_key]
+        self.loss_fn = scene._geo_loss if phase == "geo" else scene._app_loss
+        self.ocfg = tc.geo_optimizer if phase == "geo" else tc.app_optimizer
+        self.leaves = _leaves(self.train)
+        for t in self.leaves:
+            t.requires_grad_(True)
+        self.opt = GuardedAdam(self.leaves)
+
+    def step(self, i: int):
+        """Step i: -> (device row [loss, *aux, finite], lr)."""
+        loss, aux = self.loss_fn(self.train, self.frozen, self.rc, self.plan,
+                                 self.coarse, self.arrs, i)
+        grads = torch.autograd.grad(loss, self.leaves)
+        lr = lr_at(i / self.n_iters, self.ocfg)
+        with torch.no_grad():
+            finite = self.opt.step(self.leaves, grads, lr)
+        return torch.stack([loss.detach(), *(a.detach() for a in aux),
+                            finite.float()]), lr
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for t in self.leaves:
+            t.requires_grad_(False)
+        return False

@@ -1,15 +1,16 @@
-"""Image IO without OpenCV: a PNG encoder / decoder on zlib and the JET
-colormap on NumPy.
+"""Image IO without OpenCV: a PNG encoder / decoder on zlib, the JET
+colormap on NumPy, image files and a PLY writer.
 
 Counterpart of the parts of ``perf_tpu/utils/io.py`` and
-``perf_tpu/app/serve.py:35-41`` that serving needs; the GPU machine has no
-``cv2``. ``png_bytes`` writes 8-bit RGB with filter 0 on every row;
+``perf_tpu/app/serve.py:35-41`` that serving and training need; the GPU
+machine has no ``cv2``. ``png_bytes`` writes 8-bit RGB with filter 0 on every row;
 ``decode_png`` reads exactly that form. ``colorize_single_channel_image``
 reproduces ``cv2.applyColorMap(..., COLORMAP_JET)`` entry for entry.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -89,3 +90,54 @@ def colorize_single_channel_image(img) -> np.ndarray:
     img = (img - lo) / max(hi - lo, 1e-9)
     u8 = (img * 255.0).astype(np.uint8)
     return _JET[u8].astype(np.float32) / 255.0
+
+
+def read_image(path: str) -> np.ndarray:
+    """PNG file -> float32 RGB [H, W, 3] in [0, 1] (``read_image``); the
+    file must be in the form ``decode_png`` reads."""
+    with open(path, "rb") as f:
+        return decode_png(f.read()).astype(np.float32) / 255.0
+
+
+def write_image(path: str, img) -> None:
+    """Write [H, W], [H, W, 1] or [H, W, 3] as a PNG (``write_image``):
+    float images with max <= 1 are scaled by 255, then clipped and cast
+    to uint8."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[-1] == 1:
+        img = np.repeat(img, 3, axis=-1)
+    if img.dtype != np.uint8:
+        if img.max() <= 1.0 + 1e-6:
+            img = img * 255.0
+        img = np.clip(img, 0, 255).astype(np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(png_bytes(img))
+
+
+def write_ply(path: str, pts: np.ndarray, colors: np.ndarray | None = None):
+    """Binary little-endian PLY point cloud (``write_ply``)."""
+    pts = np.asarray(pts, np.float32).reshape(-1, 3)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    n = len(pts)
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}",
+              "property float x", "property float y", "property float z"]
+    if colors is not None:
+        header += ["property uchar red", "property uchar green",
+                   "property uchar blue"]
+        colors = np.asarray(colors).reshape(-1, 3)
+        if colors.dtype != np.uint8:
+            colors = np.clip(colors * 255.0, 0, 255).astype(np.uint8)
+    header.append("end_header")
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode())
+        if colors is not None:
+            rec = np.zeros(n, dtype=[("xyz", np.float32, 3),
+                                     ("rgb", np.uint8, 3)])
+            rec["xyz"] = pts
+            rec["rgb"] = colors
+            rec.tofile(f)
+        else:
+            pts.tofile(f)

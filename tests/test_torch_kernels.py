@@ -29,6 +29,17 @@ from perf_tpu_torch.render.renderer import (march_windows,
 from perf_tpu_torch.render.snapshot import (
     bake_corners, bake_scatter_pack, bake_scatter_pack_plain, bake_snapshot,
     composite_snapshot, composite_snapshot_cuda, composite_snapshot_plain)
+from perf_tpu_torch.kernels.brickgrid import (
+    BrickEncode, brick_points_cuda, brick_points_grad_cuda,
+    brick_points_grad_plain, brick_points_plain)
+from perf_tpu_torch.kernels.hashgrid import level_strides
+from perf_tpu_torch.render.occgrid import (occ_grid_from_points,
+                                           occ_grid_from_points_cuda,
+                                           occ_grid_from_points_plain)
+from perf_tpu_torch.render.renderer import (
+    count_occupied_windows, count_occupied_windows_cuda,
+    count_occupied_windows_plain, shade_composite, shade_composite_cuda,
+    shade_composite_plain)
 from perf_tpu_torch.utils import cube_room_occ_grid, random_field_params
 
 # 4 levels (res 8, 16, 32, 64), levels 2 and 3 hashed into 256 rows
@@ -62,6 +73,19 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
                                 SNAP.res)
     with pytest.raises(ValueError, match="field_eval kernel takes"):
         field_eval_cuda(params, o, dataclasses.replace(TINY, n_neurons=32))
+    x = torch.rand(4, 8)
+    strides = (1,) * TINY.grid.n_levels
+    with pytest.raises(ValueError, match="CUDA"):
+        brick_points_cuda(params["geo"]["table"], x, x, x, TINY.grid, strides)
+    with pytest.raises(ValueError, match="CUDA"):
+        brick_points_grad_cuda(params["geo"]["table"].shape, x, x, x,
+                               TINY.grid, strides, torch.zeros(32 * 4, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        count_occupied_windows_cuda(occ, o, d, cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        shade_composite_cuda(x, x, x, 0.01)
+    with pytest.raises(ValueError, match="CUDA"):
+        occ_grid_from_points_cuda(o, 64)
 
 
 def test_plain_path_counts_no_launch():
@@ -74,8 +98,19 @@ def test_plain_path_counts_no_launch():
     widx, wvalid = march_windows(occ, o, d, cfg,
                                  coarse=coarse_occ_grid(occ, 64))[:2]
     composite_snapshot(table, o, d, widx, wvalid, TINY, cfg, SNAP.res)
-    assert set(cuda.counts()) == {"field_eval", "bake_scatter_pack",
-                                  "march_windows", "snapshot_composite"}
+    x = torch.rand(8, 16)
+    t = params["geo"]["table"].clone().requires_grad_(True)
+    BrickEncode.apply(t, x, x, x, TINY.grid, (2, 1, 1, 1)).sum().backward()
+    count_occupied_windows(occ, o, d, cfg)
+    shade_composite(x.requires_grad_(True), x, torch.ones_like(x), 0.01)[1] \
+        .sum().backward()
+    occ_grid_from_points(o, 64)
+    assert set(cuda.counts()) == {
+        "field_eval", "bake_scatter_pack", "march_windows",
+        "march_windows_stratified", "snapshot_composite", "brick_encode",
+        "brick_encode_bwd",
+        "count_windows", "shade_composite", "shade_composite_bwd",
+        "occ_grid"}
     assert all(v == 0 for v in cuda.counts().values())
 
 
@@ -154,3 +189,94 @@ def test_march_and_composite_kernels_match_plain(gpu, budget):
     # same rows and samples; float32 sums and the scan in another order
     for k, tol in (("rgb", 2e-5), ("opacity", 2e-5), ("distance", 1e-4)):
         assert (out[k] - want[k]).abs().max().item() <= tol, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(1, 8), (257, 32)])
+def test_brick_encode_kernels_match_plain(gpu, n, s):
+    dev, params, _ = gpu
+    rng = np.random.default_rng(n)
+    x, y, z = (torch.from_numpy(np.sort(rng.uniform(-0.05, 1.05, (n, s)), 1)
+                                .astype(np.float32)).to(dev) for _ in range(3))
+    strides = level_strides(TINY.grid, 4e-3, s)
+    assert max(strides) > 1
+    table = params["geo"]["table"]
+    before = cuda.counts()["brick_encode"]
+    got = brick_points_cuda(table, x, y, z, TINY.grid, strides)
+    assert cuda.counts()["brick_encode"] == before + 1
+    ref = brick_points_plain(table, x, y, z, TINY.grid, strides)
+    # the same 8 bf16 corners, summed in another order: float32 rounding
+    assert (got - ref).abs().max().item() <= 1e-6
+    g = torch.from_numpy(rng.normal(size=tuple(ref.shape)).astype(
+        np.float32)).to(dev)
+    gt = brick_points_grad_cuda(table.shape, x, y, z, TINY.grid, strides, g)
+    gt_ref = brick_points_grad_plain(table.shape, x, y, z, TINY.grid,
+                                     strides, g)
+    # the same bf16-rounded contributions; float atomics add them in an
+    # order that changes from run to run
+    err = (gt - gt_ref).norm() / gt_ref.norm()
+    assert err.item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [16, 32])
+def test_stratified_march_and_count_kernels_equal_plain(gpu, budget):
+    dev, _, occ = gpu
+    cfg = RenderConfig(step=4e-3, occ_res=64, march_coarse=8,
+                       max_samples=budget, sample_stride=2)
+    o, d = _rays(3001, 4, dev)
+    jitter = torch.rand((3001, 1), generator=torch.Generator().manual_seed(
+        budget)).to(dev)
+    coarse = coarse_occ_grid(occ, 64)
+    before = cuda.counts()
+    got = march_windows(occ, o, d, cfg, coarse, jitter=jitter)
+    after = cuda.counts()
+    # the stratified form is counted apart from the eval form
+    assert after["march_windows_stratified"] == (
+        before["march_windows_stratified"] + 1)
+    assert after["march_windows"] == before["march_windows"]
+    ref = march_windows_plain(occ, o, d, cfg, coarse, jitter=jitter)
+    # integers, every slot (invalid ones too: top_k's tie order)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(ref[2].max()) > 0
+    assert torch.equal(count_occupied_windows(occ, o, d, cfg),
+                       count_occupied_windows_plain(occ, o, d, cfg))
+
+
+@pytest.mark.cuda
+def test_shade_composite_kernels_match_plain(gpu):
+    dev = gpu[0]
+    rng = np.random.default_rng(7)
+    n, s = 1025, 48
+    valid = (rng.uniform(size=(n, s)) < 0.7).astype(np.float32)
+    sig = rng.exponential(30.0, (n, s)).astype(np.float32) * valid
+    t_mid = np.sort(rng.uniform(0, 1.5, (n, s)), 1).astype(np.float32)
+    cots = [torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dev)
+            for sh in ((n, 1), (n, 1), (n,))]
+    outs, grads = [], []
+    for fn in (shade_composite, shade_composite_plain):
+        st = torch.from_numpy(sig).to(dev).requires_grad_(True)
+        w, op, dist, dl = fn(st, torch.from_numpy(t_mid).to(dev),
+                             torch.from_numpy(valid).to(dev), 1e-3)
+        ((op * cots[0]).sum() + (dist * cots[1]).sum()
+         + (dl * cots[2]).sum()).backward()
+        outs.append((w.detach(), op.detach(), dist.detach(), dl.detach()))
+        grads.append(st.grad)
+    # sequential float32 scans vs PyTorch's cumsum / sum order
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max())
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert err.item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_occ_grid_kernel_is_bitwise_plain(gpu):
+    dev = gpu[0]
+    rng = np.random.default_rng(8)
+    pts = torch.from_numpy(rng.uniform(-1.05, 1.05, (20011, 3)).astype(
+        np.float32)).to(dev)
+    for dil in (0, 1):
+        got = occ_grid_from_points(pts, 64, dil)
+        assert torch.equal(got, occ_grid_from_points_plain(pts, 64, dil))
+        assert int(got.sum()) > 0
