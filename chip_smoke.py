@@ -24,16 +24,28 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    from that checkpoint, which bakes the 384^3 snapshot, and answers
    health, pano, perspective, distance and displaced-pose renders over
    HTTP; each decoded PNG must be non-flat and equal a direct render;
-5. kernels: holds each kernel against its plain PyTorch version on the
+5. anchor: writes the cube room seen from its centre at 2048x1024 without
+   a geometry cache and runs the CLI's ``mode=train`` at the full width of
+   ``configs/nerf.yaml`` with 2 anchors, then ``mode=render_dense``: the
+   bootstrap through the joint predictor (100 + 100 distillation steps),
+   the raw fit (300 + 150 steps), per anchor the snapshot render, the
+   visibility mask, the 20-view fusion inpainting, the geometry, the
+   geo-check, the registration and a re-fit with the occupancy prune (one
+   field-path preview fires), then 12 dense frames at 512x1024. Checks:
+   the bootstrapped distance against the room's (median relative error
+   < 0.15), finite registered maps, a checkpoint at phase 2 with 3 panos,
+   the preview and non-flat frames;
+6. kernels: holds each kernel against its plain PyTorch version on the
    same inputs at the shapes of its path (and the training kernels also at
-   the pinned 8192 rays x 128 samples), and times both.
+   the pinned 8192 rays x 128 samples), and times both, with
+   ``F.grid_sample`` beside the resampler.
 
-Launch counts are zeroed just before each path (train, serve) and read just
-after it; every kernel of a path must have launched there. It prints a
-``train`` summary, a ``serve`` summary, the ``kernels`` line (each kernel
-with its launches on its path, error, ms, plain ms and the card's bound for
-the same work), the card's name and power limit, and, last,
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero; without
+Launch counts are zeroed just before each path (train, serve, anchor) and
+read just after it; every kernel of a path must have launched there. It
+prints a ``train``, a ``serve`` and an ``anchor`` summary, the ``kernels``
+line (each kernel with its launches on its path, error, ms, plain ms,
+library ms and the card's bound for the same work), the card's name and
+power limit, and, last, ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; without
 a CUDA device it exits non-zero before doing anything.
 """
 
@@ -57,6 +69,13 @@ ROOM_H, ROOM_W = 1024, 2048            # configs/nerf.yaml image_resize
 ROOM_CAMERA = (0.5, 0.3, -0.2)         # off-centre in the 0.8 half-extent room
 TRAIN_STEPS = (300, 150)               # geometry, appearance
 PINNED = (8192, 128)                   # rays x samples
+# the anchor phase's cuts of configs/nerf.yaml: distillation steps per
+# phase, anchors on one loop, the preview period (one preview fires: geo
+# iteration 500 of 3 x 300), the dense traverse's frames
+JOINT_ITERS = 100
+ANCHORS = 2
+VIS_FREQ = 500
+DENSE_POSES = 12
 CSRC = "perf_tpu_torch/kernels/csrc/"
 # the TPU kernel each entry replaces (file:line of the JAX function)
 REPLACES = {
@@ -71,12 +90,24 @@ REPLACES = {
     "shade_composite": "perf_tpu/render/renderer.py:384",
     "shade_composite_bwd": "perf_tpu/render/renderer.py:384",
     "occ_grid": "perf_tpu/render/occgrid.py:38",
+    "occ_prune": "perf_tpu/train/scene.py:347",
+    "brick_encode_grad": "perf_tpu/kernels/brickgrid.py:320",
+    "brick_encode_grad_bwd": "perf_tpu/kernels/brickgrid.py:361",
+    "bilinear_sample": "perf_tpu/core/resample.py:28",
+    "bilinear_sample_bwd": "perf_tpu/core/resample.py:28",
 }
 SERVE_KERNELS = ("field_eval", "bake_scatter_pack", "march_windows",
                  "snapshot_composite")
 TRAIN_KERNELS = ("brick_encode", "brick_encode_bwd",
                  "march_windows_stratified", "count_windows",
                  "shade_composite", "shade_composite_bwd", "occ_grid")
+# the anchor path (bootstrap, raw fit, anchors, render_dense) runs these and
+# every training and snapshot kernel
+ANCHOR_KERNELS = ("occ_prune", "brick_encode_grad", "brick_encode_grad_bwd",
+                  "bilinear_sample", "bilinear_sample_bwd")
+ANCHOR_PATH = (ANCHOR_KERNELS + TRAIN_KERNELS
+               + ("field_eval", "bake_scatter_pack", "march_windows",
+                  "snapshot_composite"))
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 FLOP/s off
 # the tensor cores, bf16 FLOP/s on them
 HBM_BPS = 3.35e12
@@ -745,6 +776,332 @@ def compare_train_kernels(runner, seed: int) -> dict:
     return res
 
 
+def write_anchor_room() -> str:
+    """The anchor phase's input: the cube room seen from its centre at
+    2048x1024 as a PNG, without a geometry cache (the dataset bootstraps
+    it through the joint predictor)."""
+    import torch
+    from perf_tpu_torch.utils import render_cube_room_pano
+    from perf_tpu_torch.utils.io import png_bytes
+    room = os.path.join(RUN_DIR, "anchor_room")
+    if os.path.isdir(room):
+        for name in os.listdir(room):
+            os.remove(os.path.join(room, name))
+    os.makedirs(room, exist_ok=True)
+    pano = render_cube_room_pano(torch.eye(4), ROOM_H, ROOM_W)
+    rgb = torch.round(pano["rgb"].clamp(0, 1) * 255).to(torch.uint8)
+    path = os.path.join(room, "image.png")
+    with open(path, "wb") as f:
+        f.write(png_bytes(rgb.numpy()))
+    return path
+
+
+def _metrics(exp_dir: str) -> list:
+    with open(os.path.join(exp_dir, "ts_log", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def anchor_phase(overrides: list):
+    """The anchor path through the CLI: the geometry bootstrap, the raw fit,
+    ANCHORS anchor cycles (render, visibility, inpaint, geometry, geo-check,
+    register, re-fit with the prune), then mode=render_dense; checked.
+    Returns (train runner, summary)."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.__main__ import main as cli_main
+    from perf_tpu_torch.train import SupInfoPool, load_checkpoint
+    from perf_tpu_torch.utils import render_cube_room_pano
+    from perf_tpu_torch.utils.io import decode_png
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = cli_main(["--device", "cuda", "--config-name", "nerf",
+                       *overrides, "mode=train"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    dense = cli_main(["--device", "cuda", "--config-name", "nerf",
+                      *overrides, "mode=render_dense", "is_continue=true"])
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+
+    # the bootstrapped geometry against the room's true distances (the
+    # joint predictor's golden bar, tests/test_sphere_analytic.py)
+    gt = render_cube_room_pano(torch.eye(4), ROOM_H, ROOM_W)["distance"]
+    gt = gt.numpy()[..., 0]
+    est = runner.dataset.ref_distance[..., 0]
+    rel = np.abs(est / est.mean() - gt / gt.mean()) / (gt / gt.mean())
+    check(float(np.median(rel)) < 0.15,
+          f"bootstrap geometry: median relative error {np.median(rel)}")
+    check(np.isfinite(runner.dataset.ref_normal).all(), "bootstrap normals")
+
+    state = load_checkpoint(os.path.join(runner.exp_dir, "checkpoints",
+                                         "ckpt.npz"))
+    pool = SupInfoPool()
+    pool.load_state_dict(state["sup_pool"])
+    check(runner.phase == ANCHORS and int(state["phase"]) == ANCHORS
+          and len(pool.sup_infos) == ANCHORS + 1,
+          f"phase {runner.phase}, {len(pool.sup_infos)} panos")
+    for info in runner.sup_pool.sup_infos[1:]:
+        for name in ("color_map", "distance_map", "normal_map"):
+            check(np.isfinite(getattr(info, name)).all(), f"anchor {name}")
+        share = float(info.mask.mean())
+        check(0.0 < share < 1.0, f"anchor supervision share {share}")
+    with open(os.path.join(runner.exp_dir, "fit_vis",
+                           f"geo_{VIS_FREQ:06d}.png"), "rb") as f:
+        preview = decode_png(f.read())
+    check(preview.shape == (128, 256, 3), "preview misshapen")
+    out_dir = os.path.join(runner.exp_dir, "dense_images_new_pano")
+    frames = sorted(f for f in os.listdir(out_dir) if f.startswith("image_"))
+    check(len(frames) >= DENSE_POSES, f"{len(frames)} dense frames")
+    with open(os.path.join(out_dir, frames[len(frames) // 2]), "rb") as f:
+        frame = decode_png(f.read())
+    check(frame.shape == (FRAME_H, FRAME_W, 3) and float(frame.std()) > 5.0,
+          f"dense frame flat or misshapen: {frame.shape} {frame.std()}")
+
+    recs = _metrics(runner.exp_dir)
+    anchors = [{} for _ in range(ANCHORS)]
+    k = 0                      # the joint timers carry no anchor: in order
+    for r in recs:
+        tag = r["tag"]
+        if tag.startswith("time/anchor_"):
+            anchors[r["step"]][tag[5:-4]] = r["value"]
+        elif tag.startswith("time/joint_"):
+            anchors[k][tag[5:-4]] = r["value"]
+            k += tag == "time/joint_readback_sec"
+    prunes = [{r["tag"][6:]: r["value"] for r in recs
+               if r["tag"].startswith("prune/") and r["step"] == step}
+              for step in sorted({r["step"] for r in recs
+                                  if r["tag"].startswith("prune/")})]
+    check(len(prunes) == ANCHORS and all(p["shell"] > 0 for p in prunes),
+          f"prunes {prunes}")
+    for p in prunes:
+        p["shell_kept_share"] = p["shell_kept"] / p["shell"]
+    fms = dense.frame_ms
+    summary = {
+        "image": [ROOM_H, ROOM_W], "anchors": ANCHORS,
+        "joint_iters_per_phase": JOINT_ITERS,
+        "steps": list(TRAIN_STEPS), "train_s": train_s,
+        "bootstrap_s": runner.dataset_s,
+        "bootstrap_median_rel_err": float(np.median(rel)),
+        "raw_fit_s": sum(r["value"] for r in recs
+                         if r["tag"] in ("time/fit_geo_sec",
+                                         "time/fit_app_sec")
+                         and r["step"] == 0),
+        "anchor_timers_s": anchors, "prune": prunes,
+        "pool_rays": runner.sup_pool.n_valid,
+        "occ_voxels": int(runner.scene.occ_grid.sum()),
+        "render_dense_s": dense_s, "dense_frames": len(frames),
+        "dense_frame_ms": sorted(fms)[len(fms) // 2],
+        "dense_frame_ms_all": fms, "max_memory_allocated": peak}
+    return runner, summary
+
+
+def compare_anchor_kernels(runner, seed: int) -> dict:
+    """The anchor path's kernels against their plain versions at the
+    path's shapes: the prune at the next episode's grids, the sphere encode
+    at a distillation step's 60 views x 256 directions (and a readback
+    chunk of 2^16), the resampler at the visibility core's 4 padded panos
+    (forward) and at the distillation's local depth-bias maps (backward)."""
+    import torch
+    import torch.nn.functional as F
+    from perf_tpu_torch.core.resample import (bilinear_sample_cuda,
+                                              bilinear_sample_grad_cuda,
+                                              bilinear_sample_plain)
+    from perf_tpu_torch.convert import params_from_jax
+    from perf_tpu_torch.fields.ngp import query_density_coords
+    from perf_tpu_torch.kernels.brickgrid import (
+        brick_encode_grad_cuda, brick_encode_grad_grad_cuda,
+        brick_encode_grad_grad_plain, brick_encode_grad_plain)
+    from perf_tpu_torch.train.scene import (PRUNE_CHUNK, _prune_points,
+                                            field_prune_occ_cuda,
+                                            field_prune_occ_plain)
+    from perf_tpu_torch.utils import random_field_params
+    scene, dev = runner.scene, runner.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = {}
+
+    # the prune: the pool's grid against the last episode's, that field
+    rc, fc = scene.render_cfg, scene.field_cfg
+    occ = runner.sup_pool.gen_occ_grid(rc.occ_res, rc.occ_dilation, dev)
+    prev = scene.occ_grid
+    geo = scene.params["geo"]
+    r = rc.occ_res
+    jitter = torch.rand((2, min(PRUNE_CHUNK, r ** 3), 3), generator=gen,
+                        device=dev)
+
+    def prune_diff(geo):
+        """(kernel grid, plain grid, differing voxel indices); a flip is
+        allowed only where the density sits at the threshold (bf16 ties of
+        the MLP move it by up to ~1%)."""
+        got = field_prune_occ_cuda(geo, fc, occ, prev, r, jitter)
+        ref = field_prune_occ_plain(geo, fc, occ, prev, r, jitter)
+        torch.cuda.synchronize()
+        diff = torch.nonzero(got != ref)[:, 0]
+        if diff.numel():
+            pts = _prune_points(diff, r)
+            dens = query_density_coords(geo, pts[:, 0], pts[:, 1], pts[:, 2],
+                                        fc)
+            for j in range(2):
+                q = pts + (jitter[j, diff % jitter.shape[1]] - 0.5) * (2.0 / r)
+                dens = torch.maximum(dens, query_density_coords(
+                    geo, q[:, 0], q[:, 1], q[:, 2], fc))
+            check(bool(((dens * 5e-3 / 1e-2 - 1.0).abs() < 0.02).all()),
+                  "occ_prune: a voxel away from the threshold differs")
+        kept = int(((ref != 0) & (prev != 0)).sum())
+        return got, ref, diff, kept
+
+    shell = int(((occ != 0) & (prev != 0)).sum())
+    got, ref, diff, kept = prune_diff(geo)
+    # the path's field may keep its whole surface shell, so the same grids
+    # and jitter also go through a seeded random geometry head of the path's
+    # width, whose density crosses the threshold inside the shell
+    rnd = params_from_jax(random_field_params(seed, fc, density_gain=0.9),
+                          dev)["geo"]
+    got_r, ref_r, diff_r, kept_r = prune_diff(rnd)
+    check(0 < kept_r < shell,
+          f"occ_prune: the random head kept {kept_r} of {shell}")
+    g = fc.grid
+    res["occ_prune"] = {
+        "voxels": r ** 3, "shell": shell, "differing_voxels": int(diff.numel()),
+        "dropped": shell - kept,
+        "random_head_check": {"dropped": shell - kept_r,
+                              "differing_voxels": int(diff_r.numel())},
+        # the largest difference of a grid value (bytes of 0 or 1) over both
+        # comparisons
+        "max_abs_err": max(
+            (a.int() - b.int()).abs().max().item()
+            for a, b in ((got, ref), (got_r, ref_r))),
+        "ms": cuda_ms(lambda: field_prune_occ_cuda(geo, fc, occ, prev, r,
+                                                   jitter), 10),
+        "plain_ms": cuda_ms(lambda: field_prune_occ_plain(
+            geo, fc, occ, prev, r, jitter), 2),
+        # 3 grids of a byte, the shell's jitter rows and 3 points' table
+        # rows (at most the table); per shell point 2 x 32 x 64 bf16
+        # multiply-adds, 128 float32 ones and the 16-level interpolation
+        **bound(3 * r ** 3 + shell * 24
+                + min(g.n_levels * g.n_bricks * 256, shell * 3 * 16 * 32),
+                shell * 3 * (128 + g.n_levels * 8 * 2 * 2),
+                shell * 3 * 2 * 32 * 64)}
+
+    # the sphere encode with derivatives, forward and backward
+    sp = runner.geo_predictor.cfg.field.grid
+    table = torch.randn((sp.n_levels, sp.n_bricks, 128), generator=gen,
+                        device=dev) * 0.1
+    for tag, n in (("step", 60 * 256), ("readback", 1 << 16)):
+        d = torch.randn((n, 3), generator=gen, device=dev)
+        x = (d / d.norm(dim=-1, keepdim=True) * 0.49 + 0.49).contiguous()
+        f, df = brick_encode_grad_cuda(table, x, sp)
+        f_ref, df_ref = brick_encode_grad_plain(table, x, sp)
+        gf = torch.randn(f.shape, generator=gen, device=dev)
+        gd = torch.randn(df.shape, generator=gen, device=dev)
+        gt = brick_encode_grad_grad_cuda(table.shape, x, sp, gf, gd)
+        gt_ref = brick_encode_grad_grad_plain(table.shape, x, sp, gf, gd)
+        torch.cuda.synchronize()
+        ef = max((f - f_ref).abs().max().item(),
+                 ((df - df_ref).abs().max() / df_ref.abs().max()).item())
+        # the same 8 bf16 corners, float32 sums in another order
+        check(ef <= 1e-6, f"brick_encode_grad ({tag}): {ef}")
+        eb = ((gt - gt_ref).norm() / gt_ref.norm()).item()
+        # the same bf16-rounded combined rows, added by float atomics
+        check(eb <= 1e-5, f"brick_encode_grad_bwd ({tag}): rel {eb}")
+        pts = n * sp.n_levels
+        tb = table.numel() * 2
+        res.setdefault("brick_encode_grad", {})[tag] = {
+            "points": n, "max_abs_err": ef,
+            "ms": cuda_ms(lambda: brick_encode_grad_cuda(table, x, sp), 20),
+            "plain_ms": cuda_ms(lambda: brick_encode_grad_plain(table, x,
+                                                                sp), 3),
+            # 12 B in and 4 x 32 floats out per direction; 8 corners of 2
+            # bf16 per (direction, level), at most the table; per corner 4
+            # weights of 3 products and 8 multiply-adds, 3 x 8 chain ops
+            **bound(n * (12 + 512) + min(tb, pts * 32), pts * (8 * 28 + 24))}
+        res.setdefault("brick_encode_grad_bwd", {})[tag] = {
+            "points": n, "max_abs_err": (gt - gt_ref).abs().max().item(),
+            "rel_norm_err": eb,
+            "ms": cuda_ms(lambda: brick_encode_grad_grad_cuda(
+                table.shape, x, sp, gf, gd), 20),
+            "plain_ms": cuda_ms(lambda: brick_encode_grad_grad_plain(
+                table.shape, x, sp, gf, gd), 3),
+            # directions and 4 x 32 cotangents in, the float32 table
+            # gradient out; per corner and feature 4 multiply-adds
+            **bound(n * (12 + 512) + table.numel() * 4, pts * 8 * 2 * 8)}
+
+    # the resampler: forward at the visibility core's padded pano stack
+    h, w = runner.dataset.height, runner.dataset.width
+    imgs = torch.rand((4, h, w, 1), generator=gen, device=dev)
+    coords = torch.rand((4, h * w, 2), generator=gen, device=dev)
+    got = bilinear_sample_cuda(imgs, coords, "border")
+    ref = bilinear_sample_plain(imgs, coords, "border")
+    grid = (coords.flip(-1) * 2.0 - 1.0)[:, :, None, :]
+    lib = F.grid_sample(imgs.permute(0, 3, 1, 2), grid, mode="bilinear",
+                        padding_mode="border", align_corners=False)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    check(err <= 1e-6, f"bilinear_sample: {err}")
+    lib_err = (lib[..., 0].permute(0, 2, 1) - ref).abs().max().item()
+    # the yardstick computes the same function, but its pixel coordinate
+    # ((2c - 1 + 1) * W - 1) / 2 rounds otherwise at W = 2048: ~1e-4 of a
+    # pixel, ~1e-4 of a value in [0, 1]
+    check(lib_err <= 1e-4, f"grid_sample border disagrees: {lib_err}")
+    n = coords.shape[0] * coords.shape[1]
+    res["bilinear_sample"] = {
+        "shape": list(imgs.shape), "samples": n, "max_abs_err": err,
+        "grid_sample_max_abs_diff": lib_err,
+        "ms": cuda_ms(lambda: bilinear_sample_cuda(imgs, coords, "border"),
+                      20),
+        "plain_ms": cuda_ms(lambda: bilinear_sample_plain(imgs, coords,
+                                                          "border"), 5),
+        "library_ms": cuda_ms(lambda: F.grid_sample(
+            imgs.permute(0, 3, 1, 2), grid, mode="bilinear",
+            padding_mode="border", align_corners=False), 20),
+        # coords in, samples out, the images once; 4 taps x 2 products and
+        # 3 sums, plus 8 coordinate operations
+        **bound(imgs.numel() * 4 + n * 12, n * 19)}
+    # backward at the distillation's local depth-bias maps
+    jc = runner.geo_predictor.cfg
+    n_views = 20 * len(jc.ratios)
+    bimg = (n_views, jc.gen_res, jc.gen_res, 1)
+    bco = torch.rand((n_views, jc.local_batch, 2), generator=gen, device=dev)
+    cot = torch.randn((n_views, jc.local_batch, 1), generator=gen,
+                      device=dev)
+    gb = bilinear_sample_grad_cuda(bimg, bco, "border", cot)
+    leaf = torch.zeros(bimg, device=dev, requires_grad=True)
+    (gb_ref,) = torch.autograd.grad(bilinear_sample_plain(leaf, bco,
+                                                          "border"),
+                                    leaf, cot)
+    torch.cuda.synchronize()
+    eb = ((gb - gb_ref).abs().max() / gb_ref.abs().max()).item()
+    check(eb <= 1e-6, f"bilinear_sample_bwd: {eb}")
+    # the yardstick: grid_sample's image gradient (border), NCHW
+    bgrid = (bco.flip(-1) * 2.0 - 1.0)[:, :, None, :]
+    bcot = cot.permute(0, 2, 1)[..., None]
+    bin_ = torch.zeros(bimg, device=dev).permute(0, 3, 1, 2)
+
+    def lib_bwd():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            bcot, bin_, bgrid, 0, 1, False, [True, False])[0]
+
+    lib_gb = lib_bwd().permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    lib_eb = ((lib_gb - gb_ref).abs().max() / gb_ref.abs().max()).item()
+    # the same coordinate rounding gap as the forward's, at W = gen_res
+    check(lib_eb <= 1e-4, f"grid_sample backward disagrees: {lib_eb}")
+    m = n_views * jc.local_batch
+    res["bilinear_sample_bwd"] = {
+        "shape": list(bimg), "samples": m, "max_abs_err": eb,
+        "grid_sample_max_rel_diff": lib_eb,
+        "library_ms": cuda_ms(lib_bwd, 20),
+        "ms": cuda_ms(lambda: bilinear_sample_grad_cuda(bimg, bco, "border",
+                                                        cot), 20),
+        "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+            bilinear_sample_plain(leaf, bco, "border"), leaf, cot), 5),
+        # coords and cotangents in, the image gradient out; 4 taps x 2
+        # products
+        **bound(m * 12 + leaf.numel() * 4, m * 16)}
+    return res
+
+
 def run(seed: int):
     import numpy as np
     import torch
@@ -855,7 +1212,29 @@ def run(seed: int):
              **scene_info}
     serve.pop("ckpt")
 
-    # 5. kernels vs their plain versions at the path's shapes
+    # 5. the anchor path (mode=train with anchors, then render_dense),
+    # counted
+    anchor_image = write_anchor_room()
+    anchor_overrides = [
+        f"device.base_exp_dir={os.path.join(RUN_DIR, 'anchor_exp')}",
+        f"dataset.image_path={anchor_image}",
+        f"priors.joint.iters_per_phase={JOINT_ITERS}",
+        f"scene.train_conf.raw_phase_iter_geo={TRAIN_STEPS[0]}",
+        f"scene.train_conf.raw_phase_iter_app={TRAIN_STEPS[1]}",
+        f"scene.train_conf.vis_freq={VIS_FREQ}",
+        "pose_sampler.traverse_ratios=[0.4]",
+        f"pose_sampler.n_anchors_per_ratio=[{ANCHORS}]",
+        f"render_dense.n_poses={DENSE_POSES}",
+        f"render_dense.height={FRAME_H}", f"render_dense.width={FRAME_W}"]
+    cuda.reset_counts()
+    anchor_runner, anchor = anchor_phase(anchor_overrides)
+    launches_anchor = cuda.counts()
+    log(f"launches on the anchor path: {launches_anchor}")
+    check(all(launches_anchor[k] > 0 for k in ANCHOR_PATH),
+          f"a kernel never launched on the anchor path: {launches_anchor}")
+    anchor["launches"] = {k: v for k, v in launches_anchor.items() if v}
+
+    # 6. kernels vs their plain versions at the path's shapes
     idx = bake_corners(scene.occ_grid, scene.render_cfg.occ_res,
                        scene.snap_cfg.res)
     serve["bake_corners"] = int(idx.shape[0])
@@ -867,6 +1246,7 @@ def run(seed: int):
     results["march_windows"], results["snapshot_composite"] = \
         compare_march_and_composite(scene, rays, 32768)
     results.update(compare_train_kernels(runner, seed))
+    results.update(compare_anchor_kernels(anchor_runner, seed))
     for name, r in results.items():
         log(f"{name}: {json.dumps(r)}")
     kernels = []
@@ -874,23 +1254,27 @@ def run(seed: int):
         r = results[name]
         if name in SERVE_KERNELS:
             counted, path = launches[name], "serve"
+        elif name in ANCHOR_KERNELS:
+            counted, path = launches_anchor[name], "anchor"
         else:
             counted, path = launches_train[name], "train"
-        # the training kernels at the smoke scene's shape; the pinned
-        # 8192 x 128 shape rides along
-        top = r.get("scene", r)
+        # the training kernels at the smoke scene's shape (the pinned
+        # 8192 x 128 shape rides along), the sphere encode at a
+        # distillation step's (a readback chunk rides along)
+        top = r.get("scene", r.get("step", r))
         kernels.append({
             "name": name, "route": "cuda",
             "source": CSRC + cuda.KERNELS[name].source,
             "replaces": REPLACES[name], "path": path, "launches": counted,
             "max_abs_err": top["max_abs_err"],
             **{k: top[k] for k in ("max_rel_err", "loose_share",
-                                   "rel_norm_err") if k in top},
+                                   "rel_norm_err", "differing_voxels", "dropped",
+                                   "random_head_check") if k in top},
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": None,
-            **({"pinned": r["pinned"]} if "pinned" in r else {})})
-    return train, serve, kernels
+            "library_ms": top.get("library_ms"),
+            **{k: r[k] for k in ("pinned", "readback") if k in r}})
+    return train, serve, anchor, kernels
 
 
 def main():
@@ -902,9 +1286,10 @@ def main():
         print("chip_smoke: no CUDA device is visible to torch", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, REPO)
-    train, serve, kernels = run(args.seed)
+    train, serve, anchor, kernels = run(args.seed)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"anchor": anchor}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

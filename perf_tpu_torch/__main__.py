@@ -1,5 +1,5 @@
 """CLI: ``python -m perf_tpu_torch --config-name nerf [--device cuda]
-device.base_exp_dir=... dataset.image_path=... mode=train|serve``
+device.base_exp_dir=... dataset.image_path=... mode=train|render_dense|serve``
 
 Reads the shared ``configs/`` with ``perf_tpu``'s dotted overrides,
 resolves the experiment directory as ``perf_tpu/app/runner.py:141-145``
@@ -7,9 +7,12 @@ does (``<base_exp_dir>/<dataset_class_name>_<case_name>/<exp_name>``,
 ``case_name`` being the image's parent directory) and builds the field,
 render and snapshot configs as ``runner.py:175-249`` does.
 
-- ``mode=train``: the raw fit of the input pano (``app/runner.py``); needs
-  ``pose_sampler.n_anchors_per_ratio=[0,0,0]`` (the anchor cycle is not
-  ported) and the cached geometry beside the image.
+- ``mode=train``: the geometry bootstrap (when no cache sits beside the
+  image), the raw fit and every anchor cycle (``app/runner.py``), with a
+  checkpoint after each phase; ``is_continue=true`` resumes at the phase
+  the checkpoint reached.
+- ``mode=render_dense`` (with ``is_continue=true``): the dense traverse
+  frames through the snapshot.
 - ``mode=serve`` (with ``is_continue=true``): loads
   ``checkpoints/ckpt.npz`` and serves it over HTTP.
 
@@ -106,14 +109,14 @@ def main(argv=None, block: bool = True):
     from .device import get_device
     conf = load_config(args.config_path, args.config_name, args.overrides)
     mode = str(conf.get("mode", "train"))
-    if mode not in ("train", "serve"):
-        raise ValueError(f"mode={mode!r}: only mode=train and mode=serve "
-                         "are ported")
+    if mode not in ("train", "render_dense", "serve"):
+        raise ValueError(f"mode={mode!r}: only mode=train, render_dense and "
+                         "serve are ported")
     device = get_device(args.device)
-    if mode == "train":
-        from .app.runner import TrainRunner
-        runner = TrainRunner(conf, device)
-        runner.train()
+    if mode != "serve":
+        from .app.runner import CoreRunner
+        runner = CoreRunner(conf, device)
+        runner.execute(mode)
         return runner
     scene = build_scene(conf, device)
     from .app.serve import serve_scene

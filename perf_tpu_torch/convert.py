@@ -37,3 +37,14 @@ def params_to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
     return tree.detach().cpu().numpy()
+
+
+def sphere_field_from_jax(tree, device="cpu") -> dict:
+    """A ``perf_tpu`` sphere field (``{"table", "mlp": {"w": [...], "b":
+    [...]}}``, weights ``[din, dout]``) -> the same tree of float32 tensors;
+    weight-normed fields (``v`` / ``g``) are refused."""
+    if "v" in tree["mlp"]:
+        raise ValueError("weight-normed sphere fields are not ported")
+    return {"table": params_from_jax(tree["table"], device),
+            "mlp": {"w": params_from_jax(list(tree["mlp"]["w"]), device),
+                    "b": params_from_jax(list(tree["mlp"]["b"]), device)}}

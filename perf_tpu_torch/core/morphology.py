@@ -1,9 +1,10 @@
 """Flat image morphology and the 3x3 Laplacian, on tensors.
 
-Counterpart of ``perf_tpu/core/morphology.py:35-107``: shifted-slice
+Counterpart of ``perf_tpu/core/morphology.py:18-127``: shifted-slice
 erosion and dilation with out-of-image neighbours that never win, the
-kornia-normalised Laplacian (kernel / 16, reflect border), and
-``edge_keep_mask``, the supervision pool's depth-discontinuity filter.
+kornia-normalised Laplacian (kernel / 16, reflect border),
+``edge_keep_mask``, the supervision pool's depth-discontinuity filter, and
+the ellipse-kernel opening of the visibility and conflict masks.
 """
 
 from __future__ import annotations
@@ -13,6 +14,23 @@ import torch
 import torch.nn.functional as F
 
 _BIG = 1e9
+
+
+def ellipse_kernel(size: int) -> np.ndarray:
+    """Binary ellipse structuring element (cv2 ``MORPH_ELLIPSE``)."""
+    r = size // 2
+    inv_r2 = 1.0 / (r * r) if r > 0 else 0.0
+    k = np.zeros((size, size), dtype=np.float32)
+    for i in range(size):
+        dy = i - r
+        if abs(dy) <= r:
+            dx = (int(round(r * np.sqrt(max(0.0, 1.0 - dy * dy * inv_r2))))
+                  if r > 0 else 0)
+        else:
+            dx = -1
+        if dx >= 0:
+            k[i, r - dx: r + dx + 1] = 1.0
+    return k
 
 
 def _morph(img: torch.Tensor, se: np.ndarray, is_dilation: bool):
@@ -75,3 +93,14 @@ def edge_keep_mask(val: torch.Tensor, threshold: float = 0.01) -> torch.Tensor:
     se = np.ones((3, 3), dtype=np.float32)
     keep = dilation(erosion(keep, se), se)
     return (keep > 0.5)[..., None]
+
+
+def binary_open_close(mask: torch.Tensor, small: int, large: int,
+                      dilate_first: bool = True) -> torch.Tensor:
+    """Dilate with a ``small`` ellipse then erode with a ``large`` one (or
+    the reverse): mask [H, W] in {0, 1} -> float [H, W]."""
+    m = mask.to(torch.float32)
+    if dilate_first:
+        return erosion(dilation(m, ellipse_kernel(small)),
+                       ellipse_kernel(large))
+    return dilation(erosion(m, ellipse_kernel(large)), ellipse_kernel(small))

@@ -37,10 +37,13 @@ class GuardedAdam:
         self.count = torch.zeros((), dtype=torch.int32,
                                  device=params[0].device)
 
-    def step(self, params: list, grads: list, lr: float) -> torch.Tensor:
+    def step(self, params: list, grads: list, lr: float,
+             finite: torch.Tensor | None = None) -> torch.Tensor:
         """Commit ``p - lr * adam(g)`` for every parameter iff all gradients
-        are finite; returns the 0-dim bool verdict."""
-        finite = all_finite(grads)
+        are finite (or iff ``finite``, a verdict over a larger set of
+        gradients); returns the 0-dim bool verdict."""
+        if finite is None:
+            finite = all_finite(grads)
         count = self.count + 1
         c = count.to(torch.float32)
         bc1 = 1.0 - torch.pow(self.b1, c)

@@ -1,12 +1,14 @@
 """The input panorama and its cached reference geometry.
 
-Counterpart of ``perf_tpu/data/dataset.py:65-123`` (``WildDataset``) on its
-cache-hit path only: the image and the ``*_ref_distance.npy`` /
-``*_ref_normal.npy`` caches beside it are read, the distances are scaled so
-that their maximum is 1/1.05, and the normalised geometry is written back
-with the ``*_ref_geometry.ply`` point cloud, as the JAX package does. The
-image must already have the configured ``image_resize``: the geometry
-bootstrap (no cache) and ``INTER_AREA`` resizing are not ported.
+Counterpart of ``perf_tpu/data/dataset.py:66-123`` (``WildDataset``): the
+image is read; its geometry comes from the ``*_ref_distance.npy`` /
+``*_ref_normal.npy`` caches beside it or, when they are missing, is
+bootstrapped by the joint predictor (``joint_predictor(image, ones,
+ones)``: every pixel free, no reference distance); the distances are
+scaled so that their maximum is 1/1.05, and the normalised geometry is
+written back with the ``*_ref_geometry.ply`` point cloud, as the JAX
+package does. The image must already have the configured
+``image_resize``: ``INTER_AREA`` resizing is not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from ..utils.io import read_image, write_ply
 
 
 class WildDataset:
-    def __init__(self, conf):
+    def __init__(self, conf, joint_predictor=None):
         self.image_path = str(conf["image_path"])
         stem = ".".join(self.image_path.split(".")[:-1])
         self.ref_distance_path = stem + "_ref_distance.npy"
@@ -40,14 +42,21 @@ class WildDataset:
                 "the image at the configured size")
         self.image = img
 
-        missing = [p for p in (self.ref_distance_path, self.ref_normal_path)
-                   if not os.path.exists(p)]
-        if missing:
+        if all(os.path.exists(p) for p in (self.ref_distance_path,
+                                           self.ref_normal_path)):
+            self.ref_distance = np.load(self.ref_distance_path).astype(
+                np.float32)
+            self.ref_normal = np.load(self.ref_normal_path).astype(np.float32)
+        elif joint_predictor is None:
             raise FileNotFoundError(
-                f"no cached reference geometry ({', '.join(missing)}): the "
-                "geometry bootstrap is not ported")
-        self.ref_distance = np.load(self.ref_distance_path).astype(np.float32)
-        self.ref_normal = np.load(self.ref_normal_path).astype(np.float32)
+                f"no cached reference geometry beside {self.image_path} and "
+                "no joint predictor to bootstrap it")
+        else:
+            h, w = self.height, self.width
+            dist, normal = joint_predictor(img, np.ones((h, w, 1), np.float32),
+                                           np.ones((h, w), np.float32))
+            self.ref_distance = dist.cpu().numpy()
+            self.ref_normal = normal.cpu().numpy()
         self.normalization()
         self.save_ref_geometry()
 

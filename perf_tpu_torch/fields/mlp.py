@@ -1,8 +1,10 @@
-"""The NGP MLP: bias-free ReLU layers, ``[din, dout]`` weights.
+"""The NGP MLP (bias-free ReLU layers) and the sphere field's VanillaMLP.
 
-Counterpart of ``perf_tpu/fields/mlp.py:31-85`` (the NGP half). Params are
-a dict ``{"w": [W0, W1, ...]}`` of float32 tensors laid out ``[din, dout]``,
-so a ``perf_tpu`` param tree loads as it is.
+Counterpart of ``perf_tpu/fields/mlp.py:31-160``. Params are dicts of
+float32 tensors laid out ``[din, dout]`` (``{"w": [...]}`` for the NGP
+MLP, ``{"w": [...], "b": [...]}`` for the VanillaMLP), so a ``perf_tpu``
+param tree loads as it is. The VanillaMLP's weight norm is not ported: the
+joint predictor's sphere field runs without it.
 """
 
 from __future__ import annotations
@@ -47,3 +49,45 @@ def ngp_mlp_apply_channels(params: dict, x: torch.Tensor,
             o = out_activation(o)
         outs.append(o)
     return tuple(outs)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def vanilla_mlp_init(generator: torch.Generator, dim_in: int, dim_out: int,
+                     n_neurons: int, n_hidden_layers: int,
+                     sphere_init_radius: float = 0.5, device=None) -> dict:
+    """A sphere-initialised VanillaMLP (the sphere field's; the JAX
+    package's other init is unused here): the first layer connects only the
+    first 3 inputs (the raw direction), the last starts at bias -radius
+    with near-constant positive weights, so the negated output is ~ radius
+    - |x| at init."""
+    dims = [dim_in] + [n_neurons] * n_hidden_layers + [dim_out]
+    ws, bs = [], []
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        if i == len(dims) - 2:
+            w = (torch.full((a, b), math.sqrt(math.pi) / math.sqrt(a))
+                 + torch.randn((a, b), generator=generator) * 1e-4)
+            bias = torch.full((b,), -sphere_init_radius)
+        else:
+            w = (torch.randn((a, b), generator=generator)
+                 * (math.sqrt(2.0) / math.sqrt(b)))
+            if i == 0:
+                w[3:] = 0.0
+            bias = torch.zeros((b,))
+        ws.append(w.to(device))
+        bs.append(bias.to(device))
+    return {"w": ws, "b": bs}
+
+
+def vanilla_mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Forward of the sphere-initialised VanillaMLP, softplus(100 z) / 100
+    between layers; returns the NEGATED network output (the sphere init
+    depends on it)."""
+    ws, bs = params["w"], params["b"]
+    h = x
+    for w, b in zip(ws[:-1], bs[:-1]):
+        h = softplus(100.0 * (h @ w + b)) / 100.0
+    return -(h @ ws[-1] + bs[-1])

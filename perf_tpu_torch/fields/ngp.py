@@ -21,7 +21,7 @@ import torch
 
 from ..kernels import cuda
 from ..kernels.brickgrid import (BrickGridConfig, brick_encode,
-                                 brick_encode_ray)
+                                 brick_encode_ray, level_table)
 from .mlp import ngp_mlp_apply_channels, ngp_mlp_init
 
 
@@ -161,13 +161,6 @@ def pack_field_weights(params: dict) -> torch.Tensor:
     gw, aw = params["geo"]["mlp"]["w"], params["app"]["mlp"]["w"]
     return torch.cat([bf(gw[0]), gw[1].float().reshape(-1), bf(aw[0]),
                       bf(aw[1]), aw[2].float().reshape(-1)]).contiguous()
-
-
-def level_table(grid: BrickGridConfig, device) -> torch.Tensor:
-    """[L, 3] int32 (level_res, bricks per axis, hashed) for the kernel."""
-    rows = [(grid.level_res(l), grid.level_bricks(l), int(grid.level_hashed(l)))
-            for l in range(grid.n_levels)]
-    return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
 def field_eval_cuda(params: dict, xyz: torch.Tensor,

@@ -1,6 +1,6 @@
 """Brick-packed multiresolution grid: config, indexing and the plain encode.
 
-Counterpart of ``perf_tpu/kernels/brickgrid.py:41-265``. A level's corners
+Counterpart of ``perf_tpu/kernels/brickgrid.py:41-265, 313-448``. A level's corners
 are packed into overlapping 4x4x4-corner bricks on a stride-3 grid; one
 row of a level's table holds a whole brick, feature-interleaved
 (lane = ((cx*4 + cy)*4 + cz)*F + f). Any voxel's 8 interpolation corners lie
@@ -14,7 +14,10 @@ fused with the MLPs inside the ``field_eval`` CUDA kernel
 (``fields/ngp.py``). The training path encodes ray-structured samples with
 per-level strides through ``brick_encode_ray``: the ``brick_encode``
 kernels (``csrc/brick_encode.cu``) forward and backward for CUDA tensors,
-the plain versions here for CPU tensors.
+the plain versions here for CPU tensors. The sphere distance field encodes
+all levels at once with the in-cell derivatives of the features
+(``brick_encode_stacked_grad``): the ``brick_encode_grad`` kernels
+(``csrc/brick_encode_grad.cu``), forward and backward, for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -39,6 +42,19 @@ class BrickGridConfig:
     log2_bricks: int = 12
     base_res: int = 16
     per_level_scale: float = 1.4472692012786865
+    # 'linear' (the NGP field) or 'smoothstep' (the sphere field; only
+    # brick_encode_stacked_grad reads it, and takes only smoothstep)
+    interpolation: str = "linear"
+
+    @classmethod
+    def sphere_field(cls, fine_res: int = 2048, n_levels: int = 16,
+                     log2_bricks: int = 13, base_res: int = 16):
+        """The sphere distance field's grid: the level ladder from
+        ``base_res`` to ``fine_res``, smoothstep interpolation, 2^13 rows."""
+        scale = float(np.exp(np.log(fine_res / base_res) / (n_levels - 1)))
+        return cls(n_levels=n_levels, n_features=2, log2_bricks=log2_bricks,
+                   base_res=base_res, per_level_scale=scale,
+                   interpolation="smoothstep")
 
     @property
     def n_bricks(self) -> int:
@@ -273,3 +289,188 @@ def brick_encode_ray(table: torch.Tensor, nx, ny, nz, cfg: BrickGridConfig,
         c = flat[first:first + n * npts].reshape(n, npts, cfg.n_features)
         outs.append(lerp_upsample(c, k, s))
     return torch.cat(outs, dim=-1)
+
+
+# -- the stacked encode with derivatives (the sphere field) ------------------
+
+def _check_smoothstep(cfg: BrickGridConfig):
+    if cfg.interpolation != "smoothstep":
+        raise ValueError("the encode with derivatives takes only smoothstep "
+                         f"interpolation (the sphere field's), got "
+                         f"{cfg.interpolation!r}")
+
+
+def _grad_corners(x: torch.Tensor, cfg: BrickGridConfig, rows: int):
+    """Every level at points x [N, 3] at once: (flat corner index into the
+    [L * rows * 64] corners, [L, N, 8]; weights [4, L, N, 8]: the trilinear
+    weight and the three derivative weights, each (a * b) * c; chains [3,
+    L, N]: d fraction / d x), in ``brick_encode_stacked_grad``'s operation
+    order."""
+    _check_smoothstep(cfg)
+    dev = x.device
+    lv = range(cfg.n_levels)
+    res = torch.tensor([float(cfg.level_res(l)) for l in lv],
+                       device=dev)[:, None]
+    nb = torch.tensor([cfg.level_bricks(l) for l in lv], device=dev)[:, None]
+    hashed = torch.tensor([cfg.level_hashed(l) for l in lv], device=dev)
+    parts = []
+    for a in range(3):
+        xa = x[None, :, a]
+        pos = torch.clamp(xa, 0.0, 1.0) * res
+        c0f = torch.minimum(torch.clamp(torch.floor(pos), min=0.0), res - 1)
+        fr = pos - c0f
+        dfr = res * ((xa > 0.0) & (xa < 1.0)) * 6.0 * fr * (1.0 - fr)
+        fr = fr * fr * (3.0 - 2.0 * fr)
+        c0 = c0f.to(torch.int64)
+        b = torch.div(c0, BRICK, rounding_mode="floor")
+        parts.append((b, c0 - b * BRICK, fr, dfr))
+    (bx, lx, fx, cx), (by, ly, fy, cy), (bz, lz, fz, cz) = parts
+    dense = bx * (nb * nb) + by * nb + bz
+    hsh = (((bx * PRIMES[0]) & _U32) ^ ((by * PRIMES[1]) & _U32)
+           ^ ((bz * PRIMES[2]) & _U32)) & (rows - 1)
+    row = torch.where(hashed[:, None], hsh, dense)
+    level0 = torch.arange(cfg.n_levels, device=dev)[:, None] * rows
+    first = (row + level0) * 64 + (lx * 4 + ly) * 4 + lz
+    idx = first[..., None] + torch.tensor(_CORNER_OFFSETS, device=dev)
+    one = torch.ones_like(fx)
+    (wx, dx), (wy, dy), (wz, dz) = (
+        (torch.stack([1.0 - f, f], -1), torch.stack([-one, one], -1))
+        for f in (fx, fy, fz))
+
+    def prod(ax, ay, az):
+        w = ((ax[..., :, None, None] * ay[..., None, :, None])
+             * az[..., None, None, :])
+        return w.reshape(*w.shape[:-3], 8)
+
+    w = torch.stack([prod(wx, wy, wz), prod(dx, wy, wz), prod(wx, dy, wz),
+                     prod(wx, wy, dz)])
+    return idx, w, torch.stack([cx, cy, cz])
+
+
+def brick_encode_grad_plain(table: torch.Tensor, x: torch.Tensor,
+                            cfg: BrickGridConfig):
+    """x [N, 3] in [0, 1] -> (feats [N, L*F], dfeats [N, 3, L*F]) from the
+    bf16 table (``corner_interp_grad_lowp`` forward and the chain of
+    ``brick_encode_stacked_grad``), level-major."""
+    nf, n = cfg.n_features, x.shape[0]
+    corners = table.to(torch.bfloat16).reshape(-1, nf)
+    idx, w, chain = _grad_corners(x, cfg, table.shape[1])
+    v = corners[idx].float()                              # [L, N, 8, F]
+    red = (v[None] * w[..., None]).sum(dim=-2)            # [4, L, N, F]
+    feats = red[0].permute(1, 0, 2).reshape(n, cfg.out_dim)
+    dfeats = (red[1:] * chain[..., None]).permute(2, 0, 1, 3)
+    return feats, dfeats.reshape(n, 3, cfg.out_dim)
+
+
+def brick_encode_grad_grad_plain(table_shape, x: torch.Tensor,
+                                 cfg: BrickGridConfig, g_feats: torch.Tensor,
+                                 g_dfeats: torch.Tensor) -> torch.Tensor:
+    """Table gradient [L, R, 64*F] float32 (``_cig_bwd``): per corner the
+    feature cotangent and the three chained derivative cotangents combined
+    in float32, rounded to bf16 once, scatter-added in float32."""
+    nf, n, nl = cfg.n_features, x.shape[0], cfg.n_levels
+    idx, w, chain = _grad_corners(x, cfg, table_shape[1])
+    gf = g_feats.reshape(n, nl, nf).permute(1, 0, 2)              # [L, N, F]
+    gd = g_dfeats.reshape(n, 3, nl, nf).permute(1, 2, 0, 3)       # [3, L, N, F]
+    gs = [gf] + [gd[a] * chain[a][..., None] for a in range(3)]
+    cot = w[0][..., None] * gs[0][..., None, :]
+    for k in (1, 2, 3):
+        cot = cot + w[k][..., None] * gs[k][..., None, :]
+    gt = torch.zeros(table_shape, dtype=torch.float32, device=x.device)
+    gt.view(-1, nf).index_add_(0, idx.reshape(-1),
+                               cot.to(torch.bfloat16).float().reshape(-1, nf))
+    return gt
+
+
+@functools.lru_cache(maxsize=16)
+def level_table(cfg: BrickGridConfig, device: torch.device) -> torch.Tensor:
+    """[L, 3] int32 (level_res, bricks per axis, hashed) on ``device`` for
+    the kernels that locate points at every level, made once per grid."""
+    rows = [(cfg.level_res(l), cfg.level_bricks(l), int(cfg.level_hashed(l)))
+            for l in range(cfg.n_levels)]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def _check_grad_args(table_shape, x: torch.Tensor, cfg: BrickGridConfig):
+    _check_smoothstep(cfg)
+    if tuple(table_shape) != (cfg.n_levels, cfg.n_bricks, 128):
+        raise ValueError("brick_encode_grad kernel takes a [L, rows, 128] "
+                         f"table (2 features), got {tuple(table_shape)}")
+    cuda.check(x, "x", torch.float32, (None, 3))
+    if x.shape[0] * cfg.n_levels * 6 >= 2 ** 62:
+        raise ValueError("too many points")
+
+
+def brick_encode_grad_cuda(table: torch.Tensor, x: torch.Tensor,
+                           cfg: BrickGridConfig):
+    _check_grad_args(table.shape, x, cfg)
+    dev, n, width = x.device, x.shape[0], cfg.out_dim
+    tbf = table.to(torch.bfloat16).contiguous()
+    cuda.check(tbf, "table", torch.bfloat16, None, dev)
+    feats = torch.empty((n, width), dtype=torch.float32, device=dev)
+    dfeats = torch.empty((n, 3, width), dtype=torch.float32, device=dev)
+    _ENCODE_GRAD.launch(x.data_ptr(), n, tbf.data_ptr(), cfg.n_bricks,
+                        level_table(cfg, dev).data_ptr(), cfg.n_levels,
+                        feats.data_ptr(), dfeats.data_ptr())
+    return feats, dfeats
+
+
+def brick_encode_grad_grad_cuda(table_shape, x: torch.Tensor,
+                                cfg: BrickGridConfig, g_feats: torch.Tensor,
+                                g_dfeats: torch.Tensor) -> torch.Tensor:
+    _check_grad_args(table_shape, x, cfg)
+    dev, n, width = x.device, x.shape[0], cfg.out_dim
+    g_feats, g_dfeats = g_feats.contiguous(), g_dfeats.contiguous()
+    cuda.check(g_feats, "g_feats", torch.float32, (n, width), dev)
+    cuda.check(g_dfeats, "g_dfeats", torch.float32, (n, 3, width), dev)
+    gt = torch.zeros(table_shape, dtype=torch.float32, device=dev)
+    _ENCODE_GRAD_BWD.launch(x.data_ptr(), n, cfg.n_bricks,
+                            level_table(cfg, dev).data_ptr(), cfg.n_levels,
+                            g_feats.data_ptr(), g_dfeats.data_ptr(),
+                            gt.data_ptr())
+    return gt
+
+
+_ENCODE_GRAD = cuda.register(cuda.CudaKernel(
+    "brick_encode_grad", "brick_encode_grad.cu",
+    "brick_encode_grad_fwd_launch",
+    [cuda.P, cuda.I64, cuda.P, cuda.I32, cuda.P, cuda.I32, cuda.P, cuda.P]))
+_ENCODE_GRAD_BWD = cuda.register(cuda.CudaKernel(
+    "brick_encode_grad_bwd", "brick_encode_grad.cu",
+    "brick_encode_grad_bwd_launch",
+    [cuda.P, cuda.I64, cuda.I32, cuda.P, cuda.I32, cuda.P, cuda.P, cuda.P]))
+
+
+class BrickEncodeGrad(torch.autograd.Function):
+    """(feats, dfeats) of ``brick_encode_stacked_grad`` with the table
+    gradient of both (first order; the points get no gradient)."""
+
+    @staticmethod
+    def forward(ctx, table, x, cfg):
+        ctx.save_for_backward(x)
+        ctx.cfg, ctx.table_shape = cfg, tuple(table.shape)
+        if x.is_cuda:
+            return brick_encode_grad_cuda(table, x, cfg)
+        if x.device.type != "cpu":
+            raise ValueError(f"brick_encode_grad: unsupported device {x.device}")
+        return brick_encode_grad_plain(table, x, cfg)
+
+    @staticmethod
+    def backward(ctx, g_feats, g_dfeats):
+        (x,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        fn = (brick_encode_grad_grad_cuda if x.is_cuda
+              else brick_encode_grad_grad_plain)
+        return fn(ctx.table_shape, x, ctx.cfg, g_feats, g_dfeats), None, None
+
+
+def brick_encode_stacked_grad(table: torch.Tensor, x: torch.Tensor,
+                              cfg: BrickGridConfig):
+    """x [..., 3] in [0, 1] -> (feats [..., L*F], dfeats / dx [..., 3,
+    L*F]), differentiable in the table."""
+    shape = x.shape[:-1]
+    feats, dfeats = BrickEncodeGrad.apply(
+        table, x.detach().reshape(-1, 3).contiguous(), cfg)
+    return (feats.reshape(*shape, cfg.out_dim),
+            dfeats.reshape(*shape, 3, cfg.out_dim))

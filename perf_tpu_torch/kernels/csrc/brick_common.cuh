@@ -1,5 +1,8 @@
-// brick_common.cuh: the brick-grid lookup shared by field_eval.cu (serving)
-// and brick_encode.cu (training, forward and backward).
+// brick_common.cuh: the brick-grid lookup shared by field_eval.cu (serving),
+// brick_encode.cu (training, forward and backward), brick_encode_grad.cu
+// (the sphere field's encode with derivatives) and occ_prune.cu, and the
+// geometry head (encode + bf16 MLP + trunc_exp) shared by field_eval.cu and
+// occ_prune.cu.
 //
 // Mirrors perf_tpu/kernels/brickgrid.py (brick_index and the factored
 // trilinear weights of corner_interp_lowp) and its plain PyTorch version in
@@ -22,6 +25,17 @@ struct BrickCorner {
     float fr[3];     // the point's fraction inside that cell, per axis
 };
 
+// The row of brick (bx, by, bz) in a level's table of `rows` rows.
+__device__ __forceinline__ uint32_t brick_row(int bx, int by, int bz, int nb,
+                                              int hashed, int rows) {
+    if (hashed) {
+        uint32_t h = ((uint32_t)bx * 1u) ^ ((uint32_t)by * 2654435761u)
+                     ^ ((uint32_t)bz * 805459861u);
+        return h & (uint32_t)(rows - 1);
+    }
+    return (uint32_t)((bx * nb + by) * nb + bz);
+}
+
 __device__ __forceinline__ BrickCorner brick_locate(float nx, float ny, float nz,
                                                     int res, int nb, int hashed,
                                                     int rows) {
@@ -37,13 +51,7 @@ __device__ __forceinline__ BrickCorner brick_locate(float nx, float ny, float nz
         b[a] = c0 / 3;
         c.loc[a] = c0 - b[a] * 3;
     }
-    if (hashed) {
-        uint32_t h = ((uint32_t)b[0] * 1u) ^ ((uint32_t)b[1] * 2654435761u)
-                     ^ ((uint32_t)b[2] * 805459861u);
-        c.row = h & (uint32_t)(rows - 1);
-    } else {
-        c.row = (uint32_t)((b[0] * nb + b[1]) * nb + b[2]);
-    }
+    c.row = brick_row(b[0], b[1], b[2], nb, hashed, rows);
     return c;
 }
 
@@ -80,4 +88,75 @@ __device__ __forceinline__ float2 brick_interp(const BrickCorner& c,
         a1 = __fadd_rn(a1, __fmul_rn(v.y, w));
     });
     return make_float2(a0, a1);
+}
+
+// ---------------------------------------------------------------------------
+// The NGP geometry head of perf_tpu/fields/ngp.py (query_density_coords):
+// brick encode of all levels, features rounded to bf16, a bias-free
+// in -> 64 ReLU layer with bf16-valued weights and each output rounded to
+// bf16, a float32 64 -> 1 layer, trunc_exp (input clamped at 80) and 0
+// outside the open unit cube. The level table holds (res, nb, hashed) per
+// level; weights are float32 values (W0 already rounded to bf16).
+
+constexpr int NGP_MAX_LEVELS = 16;
+constexpr int NGP_MAX_IN = 2 * NGP_MAX_LEVELS;
+constexpr int NGP_HID = 64;
+
+__device__ __forceinline__ float bf16_round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The brick encode of one head: two features per level, rounded to bf16.
+__device__ __forceinline__ void encode_head(
+        const __nv_bfloat16* __restrict__ table, int rows, const int* lv,
+        int n_levels, float nx, float ny, float nz, float* feat) {
+#pragma unroll
+    for (int l = 0; l < NGP_MAX_LEVELS; ++l) {
+        if (l < n_levels) {
+            const BrickCorner c = brick_locate(nx, ny, nz, lv[3 * l],
+                                               lv[3 * l + 1], lv[3 * l + 2], rows);
+            const float2 f = brick_interp(
+                c, table + ((size_t)l * rows + c.row) * 128);
+            feat[2 * l] = bf16_round(f.x);
+            feat[2 * l + 1] = bf16_round(f.y);
+        } else {
+            feat[2 * l] = 0.0f;
+            feat[2 * l + 1] = 0.0f;
+        }
+    }
+}
+
+// h[j] = bf16(relu(sum_k feat[k] * W[k, j])) for the first layer.
+__device__ __forceinline__ void first_layer(const float* feat, const float* W,
+                                            int in_dim, float* h) {
+#pragma unroll
+    for (int j = 0; j < NGP_HID; ++j) h[j] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NGP_MAX_IN; ++k) {
+        if (k < in_dim) {
+            float fk = feat[k];
+            const float* wk = W + k * NGP_HID;
+#pragma unroll
+            for (int j = 0; j < NGP_HID; ++j) h[j] = fmaf(fk, wk[j], h[j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NGP_HID; ++j) h[j] = bf16_round(fmaxf(h[j], 0.0f));
+}
+
+// Density at normalised coords (nx, ny, nz): W0 [in, 64] and W1 [64].
+__device__ __forceinline__ float geo_density(
+        const __nv_bfloat16* __restrict__ table, int rows, const int* lv,
+        int n_levels, const float* W0, const float* W1,
+        float nx, float ny, float nz) {
+    float feat[NGP_MAX_IN];
+    float h[NGP_HID];
+    encode_head(table, rows, lv, n_levels, nx, ny, nz, feat);
+    first_layer(feat, W0, 2 * n_levels, h);
+    float raw = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NGP_HID; ++j) raw = fmaf(h[j], W1[j], raw);
+    const bool sel = nx > 0.0f && nx < 1.0f && ny > 0.0f && ny < 1.0f &&
+                     nz > 0.0f && nz < 1.0f;
+    return sel ? expf(fminf(raw, 80.0f)) : 0.0f;
 }

@@ -12,7 +12,8 @@
 // float32 on the CUDA cores. At 57M bake corners that is ~0.5 TFLOP of
 // scalar FMA: the MLPs, not memory, set the time.
 //
-// Simple design: one thread owns one point end to end, so the 32 features
+// Simple design (the geometry head, the encode and the first layer live in
+// brick_common.cuh, shared with occ_prune.cu): one thread owns one point end to end, so the 32 features
 // and the 64 hidden units never leave registers. The MLP weights sit in
 // shared memory as float32 values already rounded to bf16 (read as warp
 // broadcasts). Rounding to bf16 happens exactly where JAX rounds: table
@@ -32,53 +33,11 @@
 
 namespace {
 
-constexpr int MAX_LEVELS = 16;
-constexpr int MAX_IN = 2 * MAX_LEVELS;
-constexpr int HID = 64;
+constexpr int MAX_LEVELS = NGP_MAX_LEVELS;
+constexpr int MAX_IN = NGP_MAX_IN;
+constexpr int HID = NGP_HID;
 constexpr int THREADS = 128;
 constexpr int MAX_W = MAX_IN * HID + HID + MAX_IN * HID + HID * HID + HID * 3;
-
-__device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// The brick encode of one head: two features per level, rounded to bf16.
-__device__ __forceinline__ void encode_head(
-        const __nv_bfloat16* __restrict__ table, int rows, const int* lv,
-        int n_levels, float nx, float ny, float nz, float* feat) {
-#pragma unroll
-    for (int l = 0; l < MAX_LEVELS; ++l) {
-        if (l < n_levels) {
-            const BrickCorner c = brick_locate(nx, ny, nz, lv[3 * l],
-                                               lv[3 * l + 1], lv[3 * l + 2], rows);
-            const float2 f = brick_interp(
-                c, table + ((size_t)l * rows + c.row) * 128);
-            feat[2 * l] = bf16_round(f.x);
-            feat[2 * l + 1] = bf16_round(f.y);
-        } else {
-            feat[2 * l] = 0.0f;
-            feat[2 * l + 1] = 0.0f;
-        }
-    }
-}
-
-// h[j] = bf16(relu(sum_k feat[k] * W[k, j])) for the first layer.
-__device__ __forceinline__ void first_layer(const float* feat, const float* W,
-                                            int in_dim, float* h) {
-#pragma unroll
-    for (int j = 0; j < HID; ++j) h[j] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < MAX_IN; ++k) {
-        if (k < in_dim) {
-            float fk = feat[k];
-            const float* wk = W + k * HID;
-#pragma unroll
-            for (int j = 0; j < HID; ++j) h[j] = fmaf(fk, wk[j], h[j]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < HID; ++j) h[j] = bf16_round(fmaxf(h[j], 0.0f));
-}
 
 __global__ void __launch_bounds__(THREADS)
 field_eval_kernel(const float* __restrict__ xyz, long long n,
@@ -111,12 +70,8 @@ field_eval_kernel(const float* __restrict__ xyz, long long n,
         float h[HID];
 
         // geo head: in -> 64 -> 1, trunc_exp, where-select
-        encode_head(geo_table, rows, slv, n_levels, nx, ny, nz, feat);
-        first_layer(feat, gW0, in_dim, h);
-        float raw = 0.0f;
-#pragma unroll
-        for (int j = 0; j < HID; ++j) raw = fmaf(h[j], gW1[j], raw);
-        float sigma = sel ? expf(fminf(raw, 80.0f)) : 0.0f;
+        const float sigma = geo_density(geo_table, rows, slv, n_levels, gW0,
+                                        gW1, nx, ny, nz);
 
         // app head: in -> 64 -> 64 -> 3, sigmoid, times the selector
         encode_head(app_table, rows, slv, n_levels, nx, ny, nz, feat);

@@ -142,9 +142,11 @@ def build_all() -> dict:
     """Build every registered kernel's library in parallel; returns
     {name: nvcc log} (``-Xptxas -v`` register / spill report)."""
     # each wrapper module registers its kernels when it is imported
+    from ..core import resample  # noqa: F401
     from ..fields import ngp  # noqa: F401
     from ..kernels import brickgrid  # noqa: F401
     from ..render import occgrid, renderer, snapshot  # noqa: F401
+    from ..train import scene  # noqa: F401
     started = {}                     # one nvcc per library, all at once
     for k in KERNELS.values():
         out = k._cmd()[1]

@@ -4,7 +4,7 @@ from .renderer import (
     select_segments, fine_windows_from_segments, windows_to_samples,
     march_windows, march_windows_plain, march_rays, beam_dilation,
     frame_march_plan, top_k, shade_composite, shade_rays, render_rays,
-    render_rays_bucketed,
+    render_rays_bucketed, render_image, shade_rays_eval,
 )
 from .snapshot import (
     SnapshotConfig, snapshot_render_cfg, bake_snapshot, bake_scatter_pack,

@@ -9,9 +9,10 @@ stratified), ``shade_rays`` with ``train=True``, ``render_rays``,
 march probes a 4x-pooled, dilated coarse grid once per segment of
 ``segment_windows`` windows, keeps the first ``max_segments`` occupied
 segments, then probes the fine grid at every window of those and keeps the
-first ``max_windows`` occupied windows in t order. The eval form of the
-field path (``render_image``) is not ported: eval frames go through the
-baked snapshot (``render/snapshot.py``).
+first ``max_windows`` occupied windows in t order. ``render_image`` is the
+eval form of the field path at a fixed budget (``adaptive_eval=False``),
+which the mid-episode previews use; every other eval frame goes through
+the baked snapshot (``render/snapshot.py``).
 
 Kernels for CUDA tensors, plain versions for CPU tensors:
 ``march_windows`` and ``count_occupied_windows``
@@ -43,9 +44,8 @@ from ..kernels.hashgrid import level_strides
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """The JAX ``RenderConfig`` without the knobs of unported paths
-    (``remat``, ``eval_chunk``, ``eval_rgb_windows``, ``adaptive_eval``,
-    ``run_caps``) and of the flat march (``hier_march``: the march is always
-    hierarchical)."""
+    (``remat``, ``eval_chunk``, ``adaptive_eval``, ``run_caps``) and of the
+    flat march (``hier_march``: the march is always hierarchical)."""
     near: float = 0.0
     far: float = 1.5
     step: float = 5e-4
@@ -58,8 +58,10 @@ class RenderConfig:
     march_coarse: int = 8
     level_subsampling: bool = True
     segment_windows: int = 4
-    # rgb of a train step only at the top-K weight windows (0 = every sample)
+    # rgb of a train step / an eval render only at the top-K weight windows
+    # (0 = every sample)
     train_rgb_windows: int = 4
+    eval_rgb_windows: int = 4
     sample_stride: int = 1
 
     @property
@@ -596,3 +598,66 @@ def frame_march_plan(occ_grid, o_img, d_img, cfg: RenderConfig, dilate: int,
     counts = F.max_pool2d(counts, 3, 1, padding=1)[0, 0].to(torch.int32)
     counts = counts.repeat_interleave(4, 0).repeat_interleave(4, 1)
     return sidx, svalid, counts
+
+
+# -- the eval form of the field path -------------------------------------------
+
+def shade_rays_eval(params: dict, field_cfg, rays_o, rays_d, t_mid, valid,
+                    cfg: RenderConfig, need_rgb: bool = True) -> dict:
+    """Eval shade of pre-marched samples (``shade_rays`` with
+    ``train=False``): the composite, colour from the top
+    ``eval_rgb_windows`` weight windows, and the eval background (0.5 grey,
+    distance ``eval_bg_distance``) over the transparency. No gradient."""
+    from ..fields.ngp import query_density_ray, query_rgb_ray
+    px, py, pz = (rays_o[:, a:a + 1] + rays_d[:, a:a + 1] * t_mid
+                  for a in range(3))
+    n, s = t_mid.shape
+    with torch.no_grad():
+        sigma = query_density_ray(params["geo"], px, py, pz, field_cfg,
+                                  _strides(field_cfg, cfg, s))
+        sigma = torch.where(valid > 0.0, sigma, torch.zeros_like(sigma))
+        weights, opacity, distance, _ = shade_composite(
+            sigma, t_mid, valid, cfg.step * cfg.sample_stride)
+        if need_rgb:
+            kw, c = cfg.eval_rgb_windows, cfg.samples_per_window
+            if kw and kw * c < s:
+                wwin = weights.reshape(n, -1, c).sum(dim=-1)
+                widx = torch.sort(top_k(wwin, kw)[1], dim=1).values
+                sidx = (widx[:, :, None] * c + torch.arange(
+                    c, device=widx.device)[None, None, :]).reshape(n, kw * c)
+                pk = [torch.gather(p, 1, sidx) for p in (px, py, pz)]
+                r, g, b = query_rgb_ray(params["app"], *pk, field_cfg,
+                                        _strides(field_cfg, cfg, kw * c))
+                w_c = torch.gather(weights, 1, sidx)
+            else:
+                r, g, b = query_rgb_ray(params["app"], px, py, pz, field_cfg,
+                                        _strides(field_cfg, cfg, s))
+                w_c = weights
+            colors = torch.stack([torch.sum(w_c * r, dim=-1),
+                                  torch.sum(w_c * g, dim=-1),
+                                  torch.sum(w_c * b, dim=-1)], dim=-1)
+        else:
+            colors = torch.zeros((n, 3), dtype=torch.float32,
+                                 device=t_mid.device)
+        rest = 1.0 - opacity
+        return {"rgb": colors + 0.5 * rest,
+                "distance": distance + cfg.eval_bg_distance * rest,
+                "opacity": opacity}
+
+
+def render_image(params: dict, field_cfg, occ_grid, rays, cfg: RenderConfig,
+                 query_keys=("rgb", "distance"), chunk: int = 8192) -> dict:
+    """Eval render of a ray grid ``rays`` [..., 3] through the field (the
+    JAX ``render_image`` with ``adaptive_eval=False``): the eval march and
+    shade in chunks of ``chunk`` rays at ``cfg.max_samples``."""
+    pre = rays.o.shape[:-1]
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    coarse = coarse_occ_grid(occ_grid, cfg.occ_res)
+    outs = []
+    for s0 in range(0, o.shape[0], chunk):
+        oc, dc = o[s0:s0 + chunk].contiguous(), d[s0:s0 + chunk].contiguous()
+        t_mid, valid = march_rays(occ_grid, oc, dc, cfg, coarse=coarse)
+        outs.append(shade_rays_eval(params, field_cfg, oc, dc, t_mid, valid,
+                                    cfg, need_rgb="rgb" in query_keys))
+    return {q: torch.cat([c[q] for c in outs]).reshape(*pre, -1)
+            for q in query_keys}

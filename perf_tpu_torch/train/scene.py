@@ -20,31 +20,132 @@ of a phase stay on the device until the phase ends. The random draws of a
 step (batch indices, march jitter, backgrounds, distance noise) come from
 a ``torch.Generator`` on the scene's device.
 
+From the second episode on, with ``occ_field_prune``, the pool's grid is
+first pruned with the previous episode's fitted field (``field_prune_occ``:
+the ``occ_prune`` kernel on the card). With ``vis_freq``, a 128x256 pano
+preview of the in-flight parameters is rendered through the field every
+``vis_freq`` steps (``render_image``) into ``vis_dir``.
+
 The state dict has the JAX package's keys and layout, so a checkpoint
-written by either package loads in the other. Not ported: the ``vis_freq``
-previews (the field-path render) and ``_field_prune_occ``
-(``occ_field_prune`` from the second episode on); each is refused.
+written by either package loads in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from ..convert import occ_grid_from_jax, params_from_jax, params_to_numpy
-from ..core import Rays
+from ..core import Rays, gen_pano_rays
 from ..core.optim import GuardedAdam
 from ..fields import NGPFieldConfig, init_ngp_params, reset_geo
-from ..fields.ngp import query_density_ray
+from ..fields.ngp import query_density_coords, query_density_ray
+from ..kernels import cuda
+from ..kernels.brickgrid import level_table
 from ..render import RenderConfig
 from ..render.renderer import (coarse_occ_grid, count_occupied_windows,
-                               render_rays, render_rays_bucketed)
+                               render_image, render_rays,
+                               render_rays_bucketed)
 from ..render.snapshot import (SnapshotConfig, bake_snapshot,
                                render_snapshot_image)
+from ..utils.io import write_image
 from ..utils.metrics import MetricsWriter, phase_timer
 from .schedule import OptimConfig, lr_at, smooth_l1
+from .sup_pool import _visibility_mask_core
+
+PRUNE_CHUNK = 1 << 21      # voxels per prune chunk; one jitter table for all
+PRUNE_TAU = 1e-2           # nerfacc's occupancy threshold on density * 5e-3
+
+
+def pano_visibility_from_distance(sup_pool, rays: Rays,
+                                  distance: torch.Tensor) -> torch.Tensor:
+    """[H, W] mask: 1 where some registered pano already sees the rendered
+    surface, 0 where it is new content, after the 5 / 9 opening."""
+    pts = rays.o + rays.d * distance
+    return _visibility_mask_core(pts, *sup_pool.device_pano_maps(pts.device))
+
+
+def _prune_points(v: torch.Tensor, res: int) -> torch.Tensor:
+    """Voxel centres [n, 3] of flat voxel indices v, in JAX's operations."""
+    ijk = torch.stack([v // (res * res), (v // res) % res, v % res], -1)
+    return ((ijk.to(torch.float32) + 0.5) / res - 0.5) * 2.0
+
+
+def field_prune_occ_plain(geo: dict, field_cfg: NGPFieldConfig,
+                          occ: torch.Tensor, prev: torch.Tensor, res: int,
+                          jitter: torch.Tensor) -> torch.Tensor:
+    """The pruned grid (``_field_prune_occ``): a voxel of ``occ`` is kept iff
+    the max density over its centre and the jittered points (``jitter``
+    [n_jitter, chunk, 3] uniforms, voxel v reads row v mod chunk) passes
+    ``density * 5e-3 > PRUNE_TAU``, or it is absent from ``prev``. Voxels with
+    ``occ == 0`` or ``prev == 0`` keep ``occ`` without a field query."""
+    out = occ.clone()
+    v = torch.nonzero((occ != 0) & (prev != 0))[:, 0]
+    if v.numel() == 0:
+        return out
+    chunk = jitter.shape[1]
+    base = _prune_points(v, res)
+    jit = jitter[:, v % chunk]
+    dens = None
+    for j in range(-1, jitter.shape[0]):
+        pts = base if j < 0 else base + (jit[j] - 0.5) * (2.0 / res)
+        d = query_density_coords(geo, pts[:, 0], pts[:, 1], pts[:, 2],
+                                 field_cfg)
+        dens = d if dens is None else torch.maximum(dens, d)
+    out[v] = torch.where((dens * 5e-3) > PRUNE_TAU, occ[v],
+                         torch.zeros_like(occ[v]))
+    return out
+
+
+_PRUNE = cuda.register(cuda.CudaKernel(
+    "occ_prune", "occ_prune.cu", "occ_prune_launch",
+    [cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.P, cuda.I32, cuda.I64,
+     cuda.F32, cuda.P, cuda.I32, cuda.P, cuda.P, cuda.I32, cuda.F32,
+     cuda.F32, cuda.F32, cuda.P]))
+
+
+def field_prune_occ_cuda(geo: dict, field_cfg: NGPFieldConfig,
+                         occ: torch.Tensor, prev: torch.Tensor, res: int,
+                         jitter: torch.Tensor) -> torch.Tensor:
+    """Kernel version of ``field_prune_occ_plain``."""
+    g = field_cfg.grid
+    if (g.n_features != 2 or g.n_levels > 16 or field_cfg.n_neurons != 64
+            or field_cfg.geo_hidden != 1):
+        raise ValueError("occ_prune kernel takes 2 features, <= 16 levels "
+                         f"and a 64-neuron one-layer geometry head: {field_cfg}")
+    dev = occ.device
+    cuda.check(occ, "occ", torch.uint8, (res ** 3,))
+    cuda.check(prev, "prev", torch.uint8, (res ** 3,), dev)
+    cuda.check(jitter, "jitter", torch.float32, (None, None, 3), dev)
+    table = geo["table"].to(torch.bfloat16).contiguous()
+    cuda.check(table, "table", torch.bfloat16,
+               (g.n_levels, g.n_bricks, 128), dev)
+    w = geo["mlp"]["w"]
+    weights = torch.cat([w[0].to(torch.bfloat16).float().reshape(-1),
+                         w[1].float().reshape(-1)]).contiguous()
+    out = torch.empty_like(occ)
+    _PRUNE.launch(occ.data_ptr(), prev.data_ptr(), res ** 3, res,
+                  jitter.data_ptr(), jitter.shape[0], jitter.shape[1],
+                  float(np.float32(2.0 / res)), table.data_ptr(), g.n_bricks,
+                  weights.data_ptr(), level_table(g, dev).data_ptr(),
+                  g.n_levels, float(field_cfg.aabb_min),
+                  float(field_cfg.aabb_max - field_cfg.aabb_min), PRUNE_TAU,
+                  out.data_ptr())
+    return out
+
+
+def field_prune_occ(geo: dict, field_cfg: NGPFieldConfig, occ, prev,
+                    res: int, jitter) -> torch.Tensor:
+    """The ``occ_prune`` kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if occ.is_cuda:
+        return field_prune_occ_cuda(geo, field_cfg, occ, prev, res, jitter)
+    if occ.device.type != "cpu":
+        raise ValueError(f"field_prune_occ: unsupported device {occ.device}")
+    return field_prune_occ_plain(geo, field_cfg, occ, prev, res, jitter)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +165,10 @@ class TrainConfig:
     # unchanged; engaged only where they divide the window and the budget)
     app_sample_stride: int = 2
     geo_sample_stride: int = 2
-    # prune the pool shell with the previous episode's field: reachable
-    # only from the second episode on, which needs the anchor slice
+    # prune the pool shell with the previous episode's field, from the
+    # second episode on
     occ_field_prune: bool = False
-    # mid-episode previews every vis_freq steps: not ported, refused when
-    # one would fire inside an episode
+    # a field-path pano preview every vis_freq steps (0 = off)
     vis_freq: int = 0
 
 
@@ -106,6 +206,10 @@ class NeRFScene:
         self.snap_cfg = snap_cfg or SnapshotConfig()
         # the grid the previous episode trained through (occ_field_prune)
         self._prev_occ: torch.Tensor | None = None
+        # where the vis_freq previews go (PNG); None writes none
+        self.vis_dir: str | None = None
+        # voxel counts of the last prune (occ_field_prune)
+        self.last_prune: dict | None = None
 
     # -- sampling and budgets ------------------------------------------------
 
@@ -221,11 +325,16 @@ class NeRFScene:
         [n_iters, 5] (geo: loss, depth, distortion, lr, finite) or [n_iters,
         4] (app: loss, colour, lr, finite), read back once at the end."""
         rows, lrs = [], []
+        vis = self.train_cfg.vis_freq
+        base = self.global_iter_geo if phase == "geo" else self.global_iter_app
         with self.phase_steps(phase, arrs, n_iters) as steps:
             for i in range(n_iters):
                 row, lr = steps.step(i)
                 rows.append(row)
                 lrs.append(lr)
+                if vis and (base + i + 1) % vis == 0:
+                    self._write_vis(phase, base + i + 1, steps.train,
+                                    steps.frozen)
         vals = torch.stack(rows).cpu().numpy()
         losses = np.concatenate([vals[:, :-1],
                                  np.asarray(lrs, np.float32)[:, None],
@@ -254,24 +363,51 @@ class NeRFScene:
             self.global_iter_app += n_iters
         return losses
 
+    def _write_vis(self, phase: str, global_iter: int, train_params: dict,
+                   frozen: dict):
+        """Mid-episode preview: a 128x256 identity-pose pano of the
+        in-flight parameters through the field at the fixed render config,
+        written to ``vis_dir``."""
+        params = ({"geo": train_params, "app": frozen} if phase == "geo"
+                  else {"geo": frozen, "app": train_params})
+        rays = gen_pano_rays(torch.eye(4, device=self.device), 128, 256)
+        out = render_image(params, self.field_cfg, self.occ_grid, rays,
+                           self.render_cfg, query_keys=("rgb", "distance"))
+        if self.vis_dir:
+            os.makedirs(self.vis_dir, exist_ok=True)
+            write_image(os.path.join(self.vis_dir,
+                                     f"{phase}_{global_iter:06d}.png"),
+                        torch.clamp(out["rgb"], 0.0, 1.0).cpu().numpy())
+
+    def _field_prune_occ(self, occ: torch.Tensor,
+                         prev: torch.Tensor) -> torch.Tensor:
+        """Prune ``occ`` with the current (pre-reset) geometry head and a
+        jitter table [2, min(2^21, res^3), 3] drawn here."""
+        res = self.render_cfg.occ_res
+        jitter = self._uniform(2, min(PRUNE_CHUNK, res ** 3), 3)
+        return field_prune_occ(self.params["geo"], self.field_cfg, occ, prev,
+                               res, jitter)
+
     # -- public API ------------------------------------------------------------
 
     def fit(self, sup_pool) -> dict:
         """One training episode over the current pool."""
         tc, rc = self.train_cfg, self.render_cfg
-        for phase, base, n in (("geo", self.global_iter_geo,
-                                tc.raw_phase_iter_geo),
-                               ("app", self.global_iter_app,
-                                tc.raw_phase_iter_app)):
-            if tc.vis_freq and (base + n) // tc.vis_freq > base // tc.vis_freq:
-                raise ValueError(
-                    f"vis_freq={tc.vis_freq} would preview inside the {phase} "
-                    "phase; the previews (field-path render) are not ported")
+        occ = sup_pool.gen_occ_grid(rc.occ_res, rc.occ_dilation, self.device)
         if tc.occ_field_prune and self._prev_occ is not None \
                 and self.global_iter_geo > 0:
-            raise ValueError("occ_field_prune on a second episode needs "
-                             "_field_prune_occ, which is not ported")
-        occ = sup_pool.gen_occ_grid(rc.occ_res, rc.occ_dilation, self.device)
+            # with the field fitted last episode: before reset_geo below
+            with phase_timer(self.writer, "fit_prune", self.global_iter_geo):
+                n_before = int(occ.sum())
+                n_shell = int(((occ != 0) & (self._prev_occ != 0)).sum())
+                occ = self._field_prune_occ(occ, self._prev_occ)
+                n_after = int(occ.sum())
+            # the shell (in both grids) is what the field decides on
+            self.last_prune = {"voxels": n_before, "shell": n_shell,
+                               "shell_kept": n_after - (n_before - n_shell)}
+            self.writer.add_scalars(
+                {f"prune/{k}": v for k, v in self.last_prune.items()},
+                self.global_iter_geo)
         self._prev_occ = occ
         self.occ_grid = occ
         self.params = reset_geo(self.params, self.generator, self.field_cfg,

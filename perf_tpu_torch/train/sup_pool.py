@@ -9,8 +9,15 @@ normal . (-view dir) > 0.15; each becomes one ray with its colour, distance
 and normal. The concatenated arrays live on the host as NumPy (appends are
 rare) and are uploaded per episode, padded to a power-of-two capacity with
 the valid count beside them. The state dict has the JAX package's layout,
-so either package restores the other's pool. The visibility and geo-check
-projection cores come with the anchor cycle.
+so either package restores the other's pool.
+
+The anchor cycle's projection cores (``sup_pool.py:110-304``) test
+candidate surface points against every registered pano at once: each
+pano's masked distance map is resampled along the candidate's direction
+in that pano's frame (one batched ``bilinear_sample`` over all panos) and
+compared with the candidate's own distance there; the visibility mask
+(some pano already sees the point) and the geo-check (not every pano sees
+it behind its own surface) then take the reference's ellipse openings.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core import apply_rot, img_coord_from_hw, img_coord_to_pano_direction
+from ..core import (apply_rot, bilinear_sample, binary_open_close,
+                    direction_to_img_coord, img_coord_from_hw,
+                    img_coord_to_pano_direction)
 from ..core.morphology import edge_keep_mask
 from ..render.occgrid import occ_grid_from_points
 
@@ -96,12 +105,47 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def _pano_proj_depths(pts: torch.Tensor, poses: torch.Tensor,
+                      dmaps: torch.Tensor):
+    """pts [H, W, 3] world points, poses [P, 4, 4], masked distance maps
+    [P, H', W', 1] -> (proj_d, new_d), each [P, H, W, 1]: each pano's stored
+    surface distance along the candidate's direction, and the candidate's
+    own distance from that pano."""
+    rel = pts[None] - poses[:, None, None, :3, 3]
+    local = torch.einsum("pji,phwj->phwi", poses[:, :3, :3], rel)
+    new_d = torch.linalg.norm(local, dim=-1, keepdim=True)
+    coords = direction_to_img_coord(local / new_d)
+    return bilinear_sample(dmaps, coords, padding="border"), new_d
+
+
+def _visibility_mask_core(pts, poses, dmaps) -> torch.Tensor:
+    """1 where any registered pano already sees the candidate surface (a
+    padded pano's -1 map never does), then the 5 / 9 opening."""
+    proj_d, new_d = _pano_proj_depths(pts, poses, dmaps)
+    visible = (new_d < proj_d + 1.0 / 256.0).to(torch.float32)
+    mask = torch.amax(visible, dim=0)
+    return binary_open_close((mask[..., 0] > 0.5).to(torch.float32),
+                             small=5, large=9)
+
+
+def _geo_check_core(pts, poses, dmaps) -> torch.Tensor:
+    """1 OK / 0 conflict: a candidate conflicts when every registered pano
+    sees it behind its own surface (a padded pano's -1 map is always OK),
+    then the 3 / 9 opening."""
+    proj_d, new_d = _pano_proj_depths(pts, poses, dmaps)
+    ok = (proj_d < new_d).to(torch.float32)
+    mask = torch.amin(ok, dim=0)
+    return binary_open_close((mask[..., 0] > 0.5).to(torch.float32),
+                             small=3, large=9)
+
+
 class SupInfoPool:
     """Growing pool of registered panos and their concatenated supervision."""
 
     def __init__(self):
         self.sup_infos: list[PanoSupInfo] = []
         self._cat: dict | None = None
+        self._device_maps = None   # (n, device, poses, dmaps)
 
     def register_sup_info(self, pose, mask, rgb, distance, normal=None):
         # a non-finite map means an upstream numerical blow-up; registering
@@ -123,6 +167,7 @@ class SupInfoPool:
         else:
             self._cat = {k: np.concatenate([self._cat[k], arrays[k]], 0)
                          for k in self._cat}
+        self._device_maps = None
 
     @property
     def n_valid(self) -> int:
@@ -150,6 +195,33 @@ class SupInfoPool:
                * self._cat["distances"])
         return occ_grid_from_points(torch.from_numpy(pts).to(device), res,
                                     dilation)
+
+    def device_pano_maps(self, device):
+        """(poses [P, 4, 4], masked distance maps [P, H, W, 1]) on
+        ``device``, P padded to the next power of two with identity poses
+        and -1 maps (neutral in both cores); cached until the next
+        registration. Raises when the panos' resolutions differ."""
+        device = torch.device(device)
+        if len({i.distance_map.shape for i in self.sup_infos}) != 1:
+            raise ValueError("registered panos of different resolutions")
+        n = len(self.sup_infos)
+        if self._device_maps is None or self._device_maps[:2] != (n, device):
+            cap = _next_pow2(n)
+            dmaps = np.full((cap,) + self.sup_infos[0].distance_map.shape,
+                            -1.0, np.float32)
+            poses = np.tile(np.eye(4, dtype=np.float32), (cap, 1, 1))
+            for i, info in enumerate(self.sup_infos):
+                dmaps[i] = info.distance_map * info.mask
+                poses[i] = info.pose
+            self._device_maps = (n, device, torch.from_numpy(poses).to(device),
+                                 torch.from_numpy(dmaps).to(device))
+        return self._device_maps[2:]
+
+    def geo_check(self, rays, distances: torch.Tensor) -> torch.Tensor:
+        """Cross-pano conflict mask [H, W]: 1 OK, 0 conflict."""
+        d = distances.reshape(rays.o.shape[:-1])[..., None]
+        pts = rays.o + rays.d * d
+        return _geo_check_core(pts, *self.device_pano_maps(pts.device))
 
     def state_dict(self) -> dict:
         out = {"n_sup_infos": len(self.sup_infos)}

@@ -141,3 +141,32 @@ def write_ply(path: str, pts: np.ndarray, colors: np.ndarray | None = None):
             rec.tofile(f)
         else:
             pts.tofile(f)
+
+
+def write_video(path: str, frames, fps: int = 30) -> bool:
+    """mp4 of uint8 RGB frames through ``imageio`` or ``cv2``, whichever
+    imports and writes; returns False, writing nothing, when neither can
+    (the frames stay as PNGs beside it)."""
+    frames = [np.asarray(f) for f in frames]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    try:
+        import imageio
+        with imageio.get_writer(path, fps=fps) as w:
+            for f in frames:
+                w.append_data(f)
+        return True
+    except Exception:
+        if os.path.exists(path):
+            os.remove(path)
+    try:
+        import cv2
+    except ImportError:
+        return False
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    if not vw.isOpened():
+        return False
+    for f in frames:
+        vw.write(np.ascontiguousarray(f[..., ::-1]))
+    vw.release()
+    return True

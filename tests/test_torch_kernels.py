@@ -12,6 +12,9 @@ a machine without it, without the JAX suite's conftest:
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -40,11 +43,26 @@ from perf_tpu_torch.render.renderer import (
     count_occupied_windows, count_occupied_windows_cuda,
     count_occupied_windows_plain, shade_composite, shade_composite_cuda,
     shade_composite_plain)
+from perf_tpu_torch.core import bilinear_sample
+from perf_tpu_torch.core.resample import (bilinear_sample_cuda,
+                                          bilinear_sample_grad_cuda,
+                                          bilinear_sample_plain)
+from perf_tpu_torch.kernels.brickgrid import (
+    brick_encode_grad_cuda, brick_encode_grad_grad_cuda,
+    brick_encode_grad_grad_plain, brick_encode_grad_plain,
+    brick_encode_stacked_grad)
+from perf_tpu_torch.train.scene import (field_prune_occ,
+                                        field_prune_occ_cuda,
+                                        field_prune_occ_plain)
 from perf_tpu_torch.utils import cube_room_occ_grid, random_field_params
 
 # 4 levels (res 8, 16, 32, 64), levels 2 and 3 hashed into 256 rows
 TINY = NGPFieldConfig(grid=BrickGridConfig(n_levels=4, log2_bricks=8,
                                            base_res=8, per_level_scale=2.0))
+# a 5-level smoothstep sphere grid (16 .. 256), every level hashed into 64
+# rows
+SPHERE = BrickGridConfig.sphere_field(fine_res=256, n_levels=5,
+                                      log2_bricks=6)
 RENDER = RenderConfig(step=4e-3, occ_res=64, march_coarse=12)
 SNAP = SnapshotConfig(res=48, sample_stride=12, bake_chunk=4096)
 
@@ -86,6 +104,26 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
         shade_composite_cuda(x, x, x, 0.01)
     with pytest.raises(ValueError, match="CUDA"):
         occ_grid_from_points_cuda(o, 64)
+    img = torch.zeros((2, 5, 7, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        bilinear_sample_cuda(img, torch.zeros((2, 4, 2)), "border")
+    with pytest.raises(ValueError, match="CUDA"):
+        bilinear_sample_grad_cuda(img.shape, torch.zeros((2, 4, 2)),
+                                  "border", torch.zeros((2, 4, 3)))
+    sp_table = torch.zeros((5, 64, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        brick_encode_grad_cuda(sp_table, o, SPHERE)
+    with pytest.raises(ValueError, match="CUDA"):
+        brick_encode_grad_grad_cuda(sp_table.shape, o, SPHERE,
+                                    torch.zeros(8, 10), torch.zeros(8, 3, 10))
+    linear = dataclasses.replace(SPHERE, interpolation="linear")
+    with pytest.raises(ValueError, match="only smoothstep"):
+        brick_encode_grad_cuda(sp_table, o, linear)
+    with pytest.raises(ValueError, match="only smoothstep"):
+        brick_encode_grad_plain(sp_table, o, linear)
+    with pytest.raises(ValueError, match="CUDA"):
+        field_prune_occ_cuda(params["geo"], TINY, occ, occ, 64,
+                             torch.zeros((2, 8, 3)))
 
 
 def test_plain_path_counts_no_launch():
@@ -105,13 +143,34 @@ def test_plain_path_counts_no_launch():
     shade_composite(x.requires_grad_(True), x, torch.ones_like(x), 0.01)[1] \
         .sum().backward()
     occ_grid_from_points(o, 64)
+    img = torch.rand((2, 5, 7, 3), requires_grad=True)
+    bilinear_sample(img, torch.rand((2, 4, 2)), "wrap_x").sum().backward()
+    t = torch.zeros((5, 64, 128), requires_grad=True)
+    f, df = brick_encode_stacked_grad(t, torch.rand((6, 3)), SPHERE)
+    (f.sum() + df.sum()).backward()
+    field_prune_occ(params["geo"], TINY, occ, occ, 64, torch.rand((2, 64, 3)))
     assert set(cuda.counts()) == {
         "field_eval", "bake_scatter_pack", "march_windows",
         "march_windows_stratified", "snapshot_composite", "brick_encode",
         "brick_encode_bwd",
         "count_windows", "shade_composite", "shade_composite_bwd",
-        "occ_grid"}
+        "occ_grid", "bilinear_sample", "bilinear_sample_bwd",
+        "brick_encode_grad", "brick_encode_grad_bwd", "occ_prune"}
     assert all(v == 0 for v in cuda.counts().values())
+
+
+def test_importing_the_anchor_slice_never_imports_jax():
+    code = ("import sys, perf_tpu_torch.app.runner, perf_tpu_torch.priors, "
+            "perf_tpu_torch.inpaint, perf_tpu_torch.pose, "
+            "perf_tpu_torch.native, perf_tpu_torch.fields.sphere_field, "
+            "perf_tpu_torch.core.resample; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'perf_tpu.', 'flax', 'optax')) "
+            "or m == 'perf_tpu']; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=os.path.dirname(os.path.dirname(
+                       os.path.abspath(__file__))))
 
 
 # -- on the card -----------------------------------------------------------------
@@ -280,3 +339,78 @@ def test_occ_grid_kernel_is_bitwise_plain(gpu):
         got = occ_grid_from_points(pts, 64, dil)
         assert torch.equal(got, occ_grid_from_points_plain(pts, 64, dil))
         assert int(got.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["border", "wrap_x", "zeros"])
+def test_bilinear_kernels_match_plain(gpu, padding):
+    dev = gpu[0]
+    rng = np.random.default_rng(9)
+    img = torch.from_numpy(rng.normal(size=(3, 17, 29, 5)).astype(
+        np.float32)).to(dev)
+    coords = torch.from_numpy(rng.uniform(-0.1, 1.1, (3, 1001, 2)).astype(
+        np.float32)).to(dev)
+    before = cuda.counts()
+    got = bilinear_sample(img, coords, padding)
+    assert cuda.counts()["bilinear_sample"] == before["bilinear_sample"] + 1
+    ref = bilinear_sample_plain(img, coords, padding)
+    # the same taps and products in the same order: float32, bitwise but
+    # for the compiler's freedom in the sum (none: __fadd_rn)
+    assert (got - ref).abs().max().item() <= 1e-6
+    g = torch.from_numpy(rng.normal(size=(3, 1001, 5)).astype(
+        np.float32)).to(dev)
+    gi = bilinear_sample_grad_cuda(img.shape, coords, padding, g)
+    leaf = img.clone().requires_grad_(True)
+    (gi_ref,) = torch.autograd.grad(bilinear_sample_plain(leaf, coords,
+                                                          padding), leaf, g)
+    # float atomics add the same products in an order that changes
+    assert ((gi - gi_ref).abs().max() / gi_ref.abs().max()).item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2049])
+def test_brick_encode_grad_kernels_match_plain(gpu, n):
+    dev = gpu[0]
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy(rng.normal(0, 0.1, (5, 64, 128)).astype(
+        np.float32)).to(dev)
+    d = rng.normal(size=(n, 3))
+    x = torch.from_numpy((d / np.linalg.norm(d, axis=-1, keepdims=True)
+                          * 0.49 + 0.49).astype(np.float32)).to(dev)
+    before = cuda.counts()["brick_encode_grad"]
+    f, df = brick_encode_grad_cuda(table, x, SPHERE)
+    assert cuda.counts()["brick_encode_grad"] == before + 1
+    f_ref, df_ref = brick_encode_grad_plain(table, x, SPHERE)
+    # the same 8 bf16 corners and weights; float32 sums in another order
+    assert (f - f_ref).abs().max().item() <= 1e-6
+    assert ((df - df_ref).abs().max() / df_ref.abs().max()).item() <= 1e-6
+    gf = torch.from_numpy(rng.normal(size=tuple(f.shape)).astype(
+        np.float32)).to(dev)
+    gd = torch.from_numpy(rng.normal(size=tuple(df.shape)).astype(
+        np.float32)).to(dev)
+    gt = brick_encode_grad_grad_cuda(table.shape, x, SPHERE, gf, gd)
+    gt_ref = brick_encode_grad_grad_plain(table.shape, x, SPHERE, gf, gd)
+    # the same bf16-rounded combined rows (a row whose float32 sum lands
+    # on a bf16 tie may round the other way); float atomics reorder sums
+    assert ((gt - gt_ref).norm() / gt_ref.norm()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_occ_prune_kernel_matches_plain(gpu):
+    dev, _, occ = gpu
+    params = params_from_jax(random_field_params(0, TINY, density_gain=0.9),
+                             dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prev = occ * (torch.rand(occ.shape, generator=gen, device=dev) > 0.1)
+    jitter = torch.rand((2, 5000, 3), generator=gen, device=dev)
+    before = cuda.counts()["occ_prune"]
+    got = field_prune_occ(params["geo"], TINY, occ, prev.to(torch.uint8), 64,
+                          jitter)
+    assert cuda.counts()["occ_prune"] == before + 1
+    ref = field_prune_occ_plain(params["geo"], TINY, occ,
+                                prev.to(torch.uint8), 64, jitter)
+    # the same densities but for bf16 ties in the MLP's hidden units: only
+    # a voxel at the threshold may flip
+    assert int((got != ref).sum()) <= 2
+    shell = (occ != 0) & (prev != 0)
+    assert 0 < int((ref[shell] == 0).sum()) < int(shell.sum())

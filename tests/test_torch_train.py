@@ -487,7 +487,8 @@ def test_cli_train_writes_a_checkpoint_jax_loads(tmp_path, room, one_thread):
                     "scene.field.per_level_scale=2.0"])
     assert resumed.phase == 0 and resumed.losses is None
     assert resumed.scene.global_iter_geo == 6
-    # a refused configuration raises before any work
-    with pytest.raises(ValueError, match="anchor cycle"):
+    # a refused configuration (an image not at the config's image_resize,
+    # whose INTER_AREA resize is not ported) raises before any work
+    with pytest.raises(ValueError, match="resizing is not ported"):
         main(["--device", "cpu", f"dataset.image_path={room_dir / 'image.png'}",
               f"device.base_exp_dir={exp}", "mode=train"])
