@@ -6,6 +6,11 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
 
 1. build: compiles every kernel under ``perf_tpu_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a``, one process per source, all started together;
+   gather: the row-gather benchmark entry point
+   (``python -m perf_tpu_torch.tools.bench_pallas_encode``, 2^19 rows of a
+   bf16 [4096, 128] table) through the take and one-hot tensor-core
+   kernels at every block of the JAX sweep, each output bitwise
+   ``table[rows]``;
 2. train: writes the synthetic cube room as the input pano at the config's
    2048x1024 (PNG plus the cached distance and normal maps; the camera sits
    off-centre so that the wall shell has grazing rays, as real rooms do),
@@ -35,14 +40,23 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    the bootstrapped distance against the room's (median relative error
    < 0.15), finite registered maps, a checkpoint at phase 2 with 3 panos,
    the preview and non-flat frames;
-6. kernels: holds each kernel against its plain PyTorch version on the
+6. hash: the NGP field on the hash grid (``scene.field.kind=hash``, 16
+   levels x 2^18 rows x 2 features, 64-neuron heads) through the CLI on
+   the off-centre room with its cache: ``mode=train`` (300 + 150 steps, one
+   anchor whose re-fit prunes with the hash field, one preview), then
+   ``mode=serve`` from its checkpoint (a pano and a perspective request).
+   Checks: the training phase's, a prune and a preview on the hash field,
+   PNGs equal to a direct render, no brick-field kernel launched;
+7. kernels: holds each kernel against its plain PyTorch version on the
    same inputs at the shapes of its path (and the training kernels also at
    the pinned 8192 rays x 128 samples), and times both, with
-   ``F.grid_sample`` beside the resampler.
+   ``F.grid_sample`` beside the resampler and ``table[rows]`` beside the
+   gathers.
 
-Launch counts are zeroed just before each path (train, serve, anchor) and
-read just after it; every kernel of a path must have launched there. It
-prints a ``train``, a ``serve`` and an ``anchor`` summary, the ``kernels``
+Launch counts are zeroed just before each path (gather, train, serve,
+anchor, hash) and read just after it; every kernel of a path must have
+launched there. It prints a ``gather``, a ``train``, a ``serve``, an
+``anchor`` and a ``hash`` summary, the ``kernels``
 line (each kernel with its launches on its path, error, ms, plain ms,
 library ms and the card's bound for the same work), the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; without
@@ -95,6 +109,10 @@ REPLACES = {
     "brick_encode_grad_bwd": "perf_tpu/kernels/brickgrid.py:361",
     "bilinear_sample": "perf_tpu/core/resample.py:28",
     "bilinear_sample_bwd": "perf_tpu/core/resample.py:28",
+    "take_gather": "tools/bench_pallas_encode.py:53",
+    "onehot_gather": "tools/bench_pallas_encode.py:80",
+    "hash_encode": "perf_tpu/kernels/hashgrid.py:104",
+    "hash_encode_bwd": "perf_tpu/kernels/hashgrid.py:104",
 }
 SERVE_KERNELS = ("field_eval", "bake_scatter_pack", "march_windows",
                  "snapshot_composite")
@@ -108,6 +126,20 @@ ANCHOR_KERNELS = ("occ_prune", "brick_encode_grad", "brick_encode_grad_bwd",
 ANCHOR_PATH = (ANCHOR_KERNELS + TRAIN_KERNELS
                + ("field_eval", "bake_scatter_pack", "march_windows",
                   "snapshot_composite"))
+# the gather path: the benchmark entry point at the JAX script's size
+GATHER_KERNELS = ("take_gather", "onehot_gather")
+GATHER_SAMPLES = 524288
+# the hash path (mode=train with one anchor, then mode=serve) runs the hash
+# kernels and the training and snapshot kernels, and none of the brick
+# field's
+HASH_KERNELS = ("hash_encode", "hash_encode_bwd")
+HASH_ANCHORS = 1
+HASH_PATH = HASH_KERNELS + (
+    "march_windows_stratified", "count_windows", "shade_composite",
+    "shade_composite_bwd", "occ_grid", "bake_scatter_pack", "march_windows",
+    "snapshot_composite")
+BRICK_FIELD_KERNELS = ("field_eval", "brick_encode", "brick_encode_bwd",
+                       "occ_prune")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 FLOP/s off
 # the tensor cores, bf16 FLOP/s on them
 HBM_BPS = 3.35e12
@@ -253,9 +285,18 @@ def write_scene(seed: int, conf, device) -> dict:
     return {"ckpt": ckpt, "occ_voxels": int(np.count_nonzero(occ.cpu()))}
 
 
-def serve_phase(overrides: list) -> tuple:
-    """Phase 3: start the CLI's server from the checkpoint and answer
-    requests. Returns (httpd, responses, seconds to ready)."""
+SERVE_REQUESTS = {
+    "pano": "/render?cam=pano",
+    "pers": "/render?cam=pers&yaw=0.6&pitch=-0.2",
+    "distance": "/render?q=distance",
+    "displaced": "/render?px=0.25&py=-0.15&pz=0.1&yaw=0.4&cam=pano",
+}
+
+
+def serve_phase(overrides: list, names=tuple(SERVE_REQUESTS)) -> tuple:
+    """Start the CLI's server from the checkpoint and answer the requests
+    ``names`` of SERVE_REQUESTS. Returns (httpd, responses, seconds to
+    ready)."""
     from perf_tpu_torch.__main__ import main as cli_main
     t0 = time.perf_counter()
     httpd = cli_main(["--device", "cuda", "--config-name", "nerf",
@@ -266,14 +307,9 @@ def serve_phase(overrides: list) -> tuple:
     health = json.loads(body)
     check(code == 200 and health["status"] == "ok"
           and health["snapshot_baked"], f"bad /health {health}")
-    reqs = {
-        "pano": "/render?cam=pano",
-        "pers": "/render?cam=pers&yaw=0.6&pitch=-0.2",
-        "distance": "/render?q=distance",
-        "displaced": "/render?px=0.25&py=-0.15&pz=0.1&yaw=0.4&cam=pano",
-    }
     responses = {}
-    for name, path in reqs.items():
+    for name in names:
+        path = SERVE_REQUESTS[name]
         t1 = time.perf_counter()
         code, ctype, body = fetch(base + path)
         ms = (time.perf_counter() - t1) * 1e3
@@ -285,6 +321,24 @@ def serve_phase(overrides: list) -> tuple:
     except urllib.error.HTTPError as e:
         check(e.code == 400, f"bad cam answered {e.code}")
     return httpd, responses, ready_s
+
+
+def check_responses(httpd, responses: dict):
+    """Each decoded PNG must equal a direct render of its request and be
+    non-flat."""
+    import numpy as np
+    from perf_tpu_torch.app.serve import _pose_from_query
+    from perf_tpu_torch.utils.io import decode_png
+    srv = httpd.scene_server
+    for name, (path, body, ms) in responses.items():
+        q = parse_qs(urlparse(path).query)
+        img = decode_png(body)
+        want = srv.render(_pose_from_query(q), q.get("cam", ["pano"])[0],
+                          q.get("q", ["rgb"])[0])
+        check(img.shape == want.shape and np.array_equal(img, want),
+              f"{name}: PNG differs from a direct render")
+        check(float(img.std()) > 5.0, f"{name}: flat image")
+        log(f"{name}: {img.shape} std {img.std():.2f} in {ms:.1f} ms")
 
 
 def compare_field_eval(scene, idx, chunk: int) -> dict:
@@ -484,20 +538,12 @@ def write_room(device) -> str:
     return path
 
 
-def train_phase(overrides: list):
-    """Phase 2: the CLI's raw fit, checked. Returns (runner, summary)."""
+def check_raw_fit(runner) -> dict:
+    """The raw fit's checks: finite losses, no skipped step, the depth loss
+    of the last 20 geometry steps below half that of the first 20, a
+    non-flat ``1.png``. Returns the losses' summary."""
     import numpy as np
-    import torch
-    from perf_tpu_torch.__main__ import main as cli_main
-    from perf_tpu_torch.train import NeRFScene, SupInfoPool, load_checkpoint
     from perf_tpu_torch.utils.io import decode_png
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    runner = cli_main(["--device", "cuda", "--config-name", "nerf",
-                       *overrides])
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
     geo, app = runner.losses["geo_losses"], runner.losses["app_losses"]
     check(np.isfinite(geo).all() and np.isfinite(app).all(),
           "non-finite training loss")
@@ -511,6 +557,25 @@ def train_phase(overrides: list):
         img = decode_png(f.read())
     check(img.shape == (512, 1024, 3) and float(img.std()) > 5.0,
           f"1.png flat or misshapen: {img.shape} std {img.std()}")
+    return {"depth_loss_first20": d_first, "depth_loss_last20": d_last,
+            "color_loss_first20": float(app[:20, 1].mean()),
+            "color_loss_last20": float(app[-20:, 1].mean()),
+            "skipped_steps": 0, "png_std": float(img.std())}
+
+
+def train_phase(overrides: list):
+    """Phase 2: the CLI's raw fit, checked. Returns (runner, summary)."""
+    import torch
+    from perf_tpu_torch.__main__ import main as cli_main
+    from perf_tpu_torch.train import NeRFScene, SupInfoPool, load_checkpoint
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = cli_main(["--device", "cuda", "--config-name", "nerf",
+                       *overrides])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fit = check_raw_fit(runner)
     scene = runner.scene
     state = load_checkpoint(os.path.join(runner.exp_dir, "checkpoints",
                                          "ckpt.npz"))
@@ -545,12 +610,8 @@ def train_phase(overrides: list):
         "budget": scene.sample_budget,
         "bucket_plan": list(scene.bucket_plan) if scene.bucket_plan else None,
         "phases": plans, "pool_rays": runner.sup_pool.n_valid,
-        "occ_voxels": int(scene.occ_grid.sum()),
-        "depth_loss_first20": d_first, "depth_loss_last20": d_last,
-        "color_loss_first20": float(app[:20, 1].mean()),
-        "color_loss_last20": float(app[-20:, 1].mean()),
-        "skipped_steps": 0, "max_memory_allocated": peak,
-        "png_std": float(img.std())}
+        "occ_voxels": int(scene.occ_grid.sum()), **fit,
+        "max_memory_allocated": peak}
     return runner, summary
 
 
@@ -869,14 +930,9 @@ def anchor_phase(overrides: list):
         elif tag.startswith("time/joint_"):
             anchors[k][tag[5:-4]] = r["value"]
             k += tag == "time/joint_readback_sec"
-    prunes = [{r["tag"][6:]: r["value"] for r in recs
-               if r["tag"].startswith("prune/") and r["step"] == step}
-              for step in sorted({r["step"] for r in recs
-                                  if r["tag"].startswith("prune/")})]
+    prunes = _prunes(recs)
     check(len(prunes) == ANCHORS and all(p["shell"] > 0 for p in prunes),
           f"prunes {prunes}")
-    for p in prunes:
-        p["shell_kept_share"] = p["shell_kept"] / p["shell"]
     fms = dense.frame_ms
     summary = {
         "image": [ROOM_H, ROOM_W], "anchors": ANCHORS,
@@ -1102,17 +1158,202 @@ def compare_anchor_kernels(runner, seed: int) -> dict:
     return res
 
 
+def _prunes(recs: list) -> list:
+    """Each prune's voxel counts (prune/* metrics), in order."""
+    steps = sorted({r["step"] for r in recs if r["tag"].startswith("prune/")})
+    prunes = [{r["tag"][6:]: r["value"] for r in recs
+               if r["tag"].startswith("prune/") and r["step"] == step}
+              for step in steps]
+    for p in prunes:
+        p["shell_kept_share"] = p["shell_kept"] / max(p["shell"], 1)
+    return prunes
+
+
+def hash_phase(train_overrides: list, serve_overrides: list):
+    """The hash field through the CLI: ``mode=train`` (the raw fit, then
+    HASH_ANCHORS anchor whose re-fit prunes with the hash field, and one
+    preview), then ``mode=serve`` from its checkpoint with a pano and a
+    perspective request; checked. Returns (train runner, served scene,
+    summary)."""
+    import torch
+    from perf_tpu_torch.__main__ import main as cli_main
+    from perf_tpu_torch.kernels.hashgrid import HashGridConfig
+    from perf_tpu_torch.utils.io import decode_png
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = cli_main(["--device", "cuda", "--config-name", "nerf",
+                       *train_overrides, "mode=train"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    grid = runner.scene.field_cfg.grid
+    check(grid == HashGridConfig(), f"not the full-width hash grid: {grid}")
+    fit = check_raw_fit(runner)
+    check(runner.phase == HASH_ANCHORS, f"phase {runner.phase}")
+    recs = _metrics(runner.exp_dir)
+    prunes = _prunes(recs)
+    check(len(prunes) == HASH_ANCHORS and all(p["shell"] > 0 for p in prunes),
+          f"prunes {prunes}")
+    with open(os.path.join(runner.exp_dir, "fit_vis",
+                           f"geo_{VIS_FREQ:06d}.png"), "rb") as f:
+        check(decode_png(f.read()).shape == (128, 256, 3), "preview")
+    metric = {(r["tag"], r["step"]): r["value"] for r in recs}
+    httpd, responses, ready_s = serve_phase(serve_overrides, ("pano", "pers"))
+    try:
+        scene = httpd.scene_server.scene
+        check(scene.field_cfg == runner.scene.field_cfg, "served field")
+        check_responses(httpd, responses)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    summary = {
+        "grid": dataclasses.asdict(grid), "steps": list(TRAIN_STEPS),
+        "anchors": HASH_ANCHORS, "train_s": train_s,
+        "raw_fit_geo_s": metric[("time/fit_geo_sec", 0)],
+        "raw_fit_app_s": metric[("time/fit_app_sec", 0)],
+        "rays_per_s": {
+            "geo": metric[("throughput/fit_geo_rays_per_sec", 0)],
+            "app": metric[("throughput/fit_app_rays_per_sec", 0)]},
+        "anchor_timers_s": {r["tag"][5:-4]: r["value"] for r in recs
+                            if r["tag"].startswith("time/anchor_")},
+        "prune": prunes, **fit, "budget": runner.scene.sample_budget,
+        "bucket_plan": (list(runner.scene.bucket_plan)
+                        if runner.scene.bucket_plan else None),
+        "pool_rays": runner.sup_pool.n_valid,
+        "max_memory_allocated": peak, "serve_ready_s": ready_s,
+        "request_ms": {k: v[2] for k, v in responses.items()}}
+    return runner, scene, summary
+
+
+def compare_hash_kernels(runner, served, seed: int) -> dict:
+    """The hash encode forward and backward against their plain versions at
+    the hash path's geometry-phase shape (8192 rays at the phase budget),
+    at the pinned 8192 x 128, and in the point form at a bake chunk of the
+    served scene's corners."""
+    import torch
+    from perf_tpu_torch.fields import normalize_coords
+    from perf_tpu_torch.kernels.hashgrid import (
+        hash_points_cuda, hash_points_grad_cuda, hash_points_grad_plain,
+        hash_points_plain, level_plan)
+    from perf_tpu_torch.render.snapshot import bake_corners, corner_points
+    scene = runner.scene
+    grid = scene.field_cfg.grid
+    table = scene.params["geo"]["table"]
+    table_bytes = table.numel() * 4
+    gen = torch.Generator(device=scene.device).manual_seed(seed + 2)
+    res = {"hash_encode": {}, "hash_encode_bwd": {}}
+
+    def measure(tag, nx, ny, nz, strides, backward: bool):
+        n, s = nx.shape
+        plan, total = level_plan(grid, strides, n, s)
+        # per level its 8 corners' rows of F float32 features a point, at
+        # most the rows it can address: (res + 1)^3 dense, T hashed
+        row = grid.n_features * 4
+        table_read = sum(min(n * npts * 8, grid.table_size if hashed
+                             else look ** 3) * row
+                         for _, look, hashed, _, npts, _ in plan)
+        got = hash_points_cuda(table, nx, ny, nz, grid, strides)
+        ref = hash_points_plain(table, nx, ny, nz, grid, strides)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        # the same corners, weights and sums in the same order
+        check(err <= 1e-6 * max(1.0, ref.abs().max().item()),
+              f"hash_encode ({tag}): {err}")
+        coord_bytes = 3 * n * s * 4
+        res["hash_encode"][tag] = {
+            "shape": [n, s], "points": total, "max_abs_err": err,
+            "ms": cuda_ms(lambda: hash_points_cuda(table, nx, ny, nz, grid,
+                                                   strides), 20),
+            "plain_ms": cuda_ms(lambda: hash_points_plain(
+                table, nx, ny, nz, grid, strides), 3),
+            # coordinates once, the corners' rows, 8 B out; per point 18
+            # operations to locate it and 8 x 6 to weight and sum its corners
+            **bound(coord_bytes + table_read + total * 8, total * 66)}
+        if not backward:
+            return
+        # bf16-valued cotangents, as the field delivers them
+        g = torch.randn((total, 2), generator=gen, device=scene.device)
+        g = g.to(torch.bfloat16).float()
+        b_got = hash_points_grad_cuda(table.shape, nx, ny, nz, grid, strides,
+                                      g)
+        b_ref = hash_points_grad_plain(table.shape, nx, ny, nz, grid, strides,
+                                       g)
+        torch.cuda.synchronize()
+        rel = ((b_got - b_ref).norm() / b_ref.norm()).item()
+        # the same float32 contributions, added by float atomics in an
+        # order that changes from run to run
+        check(rel <= 1e-6, f"hash_encode_bwd ({tag}): rel {rel}")
+        res["hash_encode_bwd"][tag] = {
+            "shape": [n, s], "points": total,
+            "max_abs_err": (b_got - b_ref).abs().max().item(),
+            "rel_norm_err": rel,
+            "ms": cuda_ms(lambda: hash_points_grad_cuda(
+                table.shape, nx, ny, nz, grid, strides, g), 20),
+            "plain_ms": cuda_ms(lambda: hash_points_grad_plain(
+                table.shape, nx, ny, nz, grid, strides, g), 3),
+            # coordinates and cotangents in, the float32 gradient out; per
+            # point 18 operations to locate it, 8 x 4 to weight its corners
+            **bound(coord_bytes + total * 8 + table_bytes, total * 50)}
+
+    for tag, samples in (("scene", None), ("pinned", PINNED[1])):
+        *_, nx, ny, nz, strides = _train_inputs(runner, samples, seed)
+        measure(tag, nx, ny, nz, strides, backward=True)
+    snap = served.snap_cfg
+    idx = bake_corners(served.occ_grid, served.render_cfg.occ_res, snap.res)
+    pts = corner_points(idx[:snap.bake_chunk], snap.res, served.field_cfg)
+    nx, ny, nz, _ = normalize_coords(served.field_cfg, pts[:, :1],
+                                     pts[:, 1:2], pts[:, 2:])
+    measure("bake", nx.contiguous(), ny.contiguous(), nz.contiguous(),
+            (1,) * grid.n_levels, backward=False)
+    return res
+
+
+def compare_gather_kernels(sweep: dict, seed: int) -> dict:
+    """Both gathers' rows of the kernels line from the benchmark's ``sweep``
+    (every block checked bitwise against ``table[rows]`` and timed there,
+    ``table[rows]`` timed beside them), with their plain versions checked
+    bitwise and timed on the same inputs, and the bound."""
+    import torch
+    from perf_tpu_torch.kernels.gather import (
+        W, onehot_gather_plain, take_gather_plain)
+    from perf_tpu_torch.tools.bench_pallas_encode import make_inputs
+    table, rows = make_inputs(GATHER_SAMPLES, seed, torch.device("cuda"))
+    ref = table[rows.long()]
+    n, r = GATHER_SAMPLES, table.shape[0]
+    # the function table[rows]: the rows' indices in, their rows out, the
+    # table read once
+    function_bound = bound(n * (4 + W * 2) + table.numel() * 2, 0)
+    out = {}
+    for name, key, plain, bf16_flops in (
+            ("take_gather", "take", take_gather_plain, 0),
+            # the one-hot product's own work on the tensor cores
+            ("onehot_gather", "onehot", onehot_gather_plain, 2 * n * r * W)):
+        check(torch.equal(plain(table, rows).view(torch.int16),
+                          ref.view(torch.int16)), f"{name} plain differs")
+        by_block = sweep[key]
+        best = min(by_block, key=lambda b: by_block[b]["ms"])
+        out[name] = {
+            "samples": n, "block": best,
+            "ms_by_block": {b: v["ms"] for b, v in by_block.items()},
+            "max_abs_err": max(v["max_abs_err"] for v in by_block.values()),
+            "ms": by_block[best]["ms"],
+            "plain_ms": cuda_ms(lambda: plain(table, rows), 3),
+            "library_ms": sweep["gather"]["ms"], **function_bound}
+        if bf16_flops:
+            out[name]["formulation_bound_ms"] = bound(0, 0,
+                                                      bf16_flops)["bound_ms"]
+    return out
+
+
 def run(seed: int):
     import numpy as np
     import torch
 
-    from perf_tpu_torch.app.serve import _pose_from_query
     from perf_tpu_torch.config import load_config
     from perf_tpu_torch.core import gen_pano_rays
     from perf_tpu_torch.kernels import cuda
     from perf_tpu_torch.render.snapshot import bake_corners
-    from perf_tpu_torch.utils.io import (colorize_single_channel_image,
-                                         decode_png, png_bytes)
+    from perf_tpu_torch.utils.io import colorize_single_channel_image, png_bytes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1127,6 +1368,17 @@ def run(seed: int):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"{name}: {line.strip()}")
+
+    # the gather benchmark's entry point, counted
+    from perf_tpu_torch.tools import bench_pallas_encode
+    cuda.reset_counts()
+    gather = bench_pallas_encode.main(["--samples", str(GATHER_SAMPLES),
+                                       "--seed", str(seed)])
+    launches_gather = cuda.counts()
+    log(f"launches on the gather path: {launches_gather}")
+    check(all(launches_gather[k] > 0 for k in GATHER_KERNELS),
+          f"a kernel never launched on the gather path: {launches_gather}")
+    gather["launches"] = {k: v for k, v in launches_gather.items() if v}
 
     # 2. train: the main path of mode=train, counted
     image = write_room(device)
@@ -1162,17 +1414,8 @@ def run(seed: int):
     check(all(launches[k] > 0 for k in SERVE_KERNELS),
           f"a kernel never launched on the serving path: {launches}")
     try:
-        srv = httpd.scene_server
-        scene = srv.scene
-        for name, (path, body, ms) in responses.items():
-            q = parse_qs(urlparse(path).query)
-            img = decode_png(body)
-            want = srv.render(_pose_from_query(q), q.get("cam", ["pano"])[0],
-                              q.get("q", ["rgb"])[0])
-            check(img.shape == want.shape and np.array_equal(img, want),
-                  f"{name}: PNG differs from a direct render")
-            check(float(img.std()) > 5.0, f"{name}: flat image")
-            log(f"{name}: {img.shape} std {img.std():.2f} in {ms:.1f} ms")
+        scene = httpd.scene_server.scene
+        check_responses(httpd, responses)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1234,7 +1477,39 @@ def run(seed: int):
           f"a kernel never launched on the anchor path: {launches_anchor}")
     anchor["launches"] = {k: v for k, v in launches_anchor.items() if v}
 
-    # 6. kernels vs their plain versions at the path's shapes
+    # 6. the hash field: mode=train with one anchor, then mode=serve from
+    # its checkpoint, counted together
+    hash_common = [
+        f"device.base_exp_dir={os.path.join(RUN_DIR, 'hash_exp')}",
+        f"dataset.image_path={image}", "scene.field.kind=hash"]
+    cuda.reset_counts()
+    hash_runner, hash_scene, hashp = hash_phase(
+        hash_common + [
+            f"priors.joint.iters_per_phase={JOINT_ITERS}",
+            f"scene.train_conf.raw_phase_iter_geo={TRAIN_STEPS[0]}",
+            f"scene.train_conf.raw_phase_iter_app={TRAIN_STEPS[1]}",
+            f"scene.train_conf.vis_freq={VIS_FREQ}",
+            "pose_sampler.traverse_ratios=[0.4]",
+            f"pose_sampler.n_anchors_per_ratio=[{HASH_ANCHORS}]"],
+        hash_common + ["mode=serve", "is_continue=true", "serve.port=0",
+                       f"serve.height={FRAME_H}", f"serve.width={FRAME_W}"])
+    launches_hash = cuda.counts()
+    log(f"launches on the hash path: {launches_hash}")
+    check(all(launches_hash[k] > 0 for k in HASH_PATH),
+          f"a kernel never launched on the hash path: {launches_hash}")
+    check(all(launches_hash[k] == 0 for k in BRICK_FIELD_KERNELS),
+          f"a brick-field kernel launched on the hash path: {launches_hash}")
+    hashp["launches"] = {k: v for k, v in launches_hash.items() if v}
+    hashp.update(warm_steps(hash_runner))
+    # three more bakes of the served hash scene (the first is in ready_s)
+    table_served = hash_scene.snapshot
+    rebake_s = [host_ms(hash_scene.bake_snapshot, 1) / 1e3 for _ in range(3)]
+    check(torch.equal(hash_scene.snapshot, table_served),
+          "hash bake not repeatable")
+    del table_served
+    hashp.update(warm_bake_s=sorted(rebake_s)[1], rebake_runs_s=rebake_s)
+
+    # 7. kernels vs their plain versions at the path's shapes
     idx = bake_corners(scene.occ_grid, scene.render_cfg.occ_res,
                        scene.snap_cfg.res)
     serve["bake_corners"] = int(idx.shape[0])
@@ -1247,6 +1522,8 @@ def run(seed: int):
         compare_march_and_composite(scene, rays, 32768)
     results.update(compare_train_kernels(runner, seed))
     results.update(compare_anchor_kernels(anchor_runner, seed))
+    results.update(compare_hash_kernels(hash_runner, hash_scene, seed))
+    results.update(compare_gather_kernels(gather, seed))
     for name, r in results.items():
         log(f"{name}: {json.dumps(r)}")
     kernels = []
@@ -1256,11 +1533,17 @@ def run(seed: int):
             counted, path = launches[name], "serve"
         elif name in ANCHOR_KERNELS:
             counted, path = launches_anchor[name], "anchor"
+        elif name in GATHER_KERNELS:
+            counted, path = launches_gather[name], "gather"
+        elif name in HASH_KERNELS:
+            counted, path = launches_hash[name], "hash"
         else:
             counted, path = launches_train[name], "train"
         # the training kernels at the smoke scene's shape (the pinned
-        # 8192 x 128 shape rides along), the sphere encode at a
-        # distillation step's (a readback chunk rides along)
+        # 8192 x 128 shape and the hash encode's bake chunk ride along), the
+        # sphere encode at a distillation step's (a readback chunk rides
+        # along), the gathers at their fastest block (every block rides
+        # along)
         top = r.get("scene", r.get("step", r))
         kernels.append({
             "name": name, "route": "cuda",
@@ -1269,12 +1552,14 @@ def run(seed: int):
             "max_abs_err": top["max_abs_err"],
             **{k: top[k] for k in ("max_rel_err", "loose_share",
                                    "rel_norm_err", "differing_voxels", "dropped",
-                                   "random_head_check") if k in top},
+                                   "random_head_check", "block", "ms_by_block",
+                                   "formulation_bound_ms") if k in top},
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top.get("library_ms"),
-            **{k: r[k] for k in ("pinned", "readback") if k in r}})
-    return train, serve, anchor, kernels
+            **{k: r[k] for k in ("pinned", "readback", "bake") if k in r}})
+    return {"gather": gather, "train": train, "serve": serve,
+            "anchor": anchor, "hash": hashp, "kernels": kernels}
 
 
 def main():
@@ -1286,11 +1571,8 @@ def main():
         print("chip_smoke: no CUDA device is visible to torch", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, REPO)
-    train, serve, anchor, kernels = run(args.seed)
-    print(json.dumps({"train": train}), flush=True)
-    print(json.dumps({"serve": serve}), flush=True)
-    print(json.dumps({"anchor": anchor}), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    for key, value in run(args.seed).items():
+        print(json.dumps({key: value}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()

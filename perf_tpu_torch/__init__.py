@@ -2,14 +2,18 @@
 
 The package mirrors ``perf_tpu``'s file layout, so every module has its
 JAX counterpart at the same relative path. It imports ``torch`` and never
-``jax``. The serving path (``mode=serve``) runs here end to end:
+``jax``. ``mode=train``, ``mode=render_dense`` and ``mode=serve`` run here
+end to end (``python -m perf_tpu_torch``):
 
-- ``core``     — rays and the pano / perspective camera chain
-- ``kernels``  — brick-grid encode (plain) and the CUDA kernel build
-- ``fields``   — the NGP brick field: MLP, ``trunc_exp``, fused ``field_eval``
-- ``render``   — occupancy grids, the eval march, the baked snapshot
-- ``train``    — checkpoint IO and ``NeRFScene`` (bake + render)
-- ``app``      — the HTTP scene server
+- ``core``     — rays, cameras, resampling, morphology, the guarded Adam
+- ``kernels``  — the brick and hash grids (plain encodes), the row
+  gathers, and the CUDA kernel build
+- ``fields``   — the NGP field on either grid, the sphere distance field
+- ``render``   — occupancy grids, the marches, the baked snapshot
+- ``train``    — ``NeRFScene`` (fit, prune, bake, render), the pool,
+  checkpoints
+- ``app``      — the runner and the HTTP scene server
+- ``tools``    — the row-gather microbenchmark
 - ``convert``  — carries a ``perf_tpu`` parameter tree into torch tensors
 
 Every hand-written kernel has a plain PyTorch version beside it. A wrapper

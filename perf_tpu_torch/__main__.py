@@ -16,8 +16,11 @@ render and snapshot configs as ``runner.py:175-249`` does.
 - ``mode=serve`` (with ``is_continue=true``): loads
   ``checkpoints/ckpt.npz`` and serves it over HTTP.
 
-Only the ``brick`` field kind and the ``occ`` estimator are ported. The
-device defaults to ``cuda``; ``--device cpu`` runs the plain versions.
+``scene.field`` chooses the grid as the JAX runner does: ``kind: brick``
+the brick grid; another kind with keys (``kind: hash``) a hash grid of
+those keys (``log2_table_size`` 18 by default); no keys the default NGP
+field (the hash grid). Only the ``occ`` estimator is ported. The device
+defaults to ``cuda``; ``--device cpu`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -44,15 +47,14 @@ def scene_configs(conf):
     """(NGPFieldConfig, RenderConfig, SnapshotConfig) from a loaded config,
     with the JAX runner's keys and defaults."""
     from .fields import NGPFieldConfig
-    from .kernels import BrickGridConfig
+    from .kernels import BrickGridConfig, HashGridConfig
     from .render import RenderConfig, SnapshotConfig
     sc = conf["scene"]
     if sc.get("estimator_type", "occ") != "occ":
         raise ValueError("only scene.estimator_type=occ is ported")
     fc = conf.get_path("scene.field", {}) or {}
-    if fc.get("kind", "hash") != "brick":
-        raise ValueError("only scene.field.kind=brick is ported")
     rc = conf.get_path("scene.renderer_conf", {}) or {}
+    kind = fc.get("kind", "hash")
     # the snapshot takes its sample cap from snapshot_render_cfg, not
     # scene.max_samples
     render_cfg = RenderConfig(
@@ -60,13 +62,26 @@ def scene_configs(conf):
         max_samples=conf.get_path("scene.max_samples", 256),
         step=conf.get_path("scene.march_step", 5e-4),
         occ_res=conf.get_path("scene.occ_res", 256),
-        occ_dilation=conf.get_path("scene.occ_dilation", 1))
-    field_cfg = NGPFieldConfig(grid=BrickGridConfig(
-        n_levels=fc.get("n_levels", 16),
-        n_features=fc.get("n_features", 2),
-        log2_bricks=fc.get("log2_bricks", 12),
-        base_res=fc.get("base_res", 16),
-        per_level_scale=fc.get("per_level_scale", 1.4472692012786865)))
+        occ_dilation=conf.get_path("scene.occ_dilation", 1),
+        eval_chunk=rc.get("eval_chunk", 8192 if kind == "brick" else 32768))
+    # the JAX runner's three branches: the brick grid; any other kind with
+    # keys, a hash grid of those keys; no keys, the default (hash) field
+    if kind == "brick":
+        field_cfg = NGPFieldConfig(grid=BrickGridConfig(
+            n_levels=fc.get("n_levels", 16),
+            n_features=fc.get("n_features", 2),
+            log2_bricks=fc.get("log2_bricks", 12),
+            base_res=fc.get("base_res", 16),
+            per_level_scale=fc.get("per_level_scale", 1.4472692012786865)))
+    elif fc:
+        field_cfg = NGPFieldConfig(grid=HashGridConfig(
+            n_levels=fc.get("n_levels", 16),
+            n_features=fc.get("n_features", 2),
+            log2_table_size=fc.get("log2_table_size", 18),
+            base_res=fc.get("base_res", 16),
+            per_level_scale=fc.get("per_level_scale", 1.4472692012786865)))
+    else:
+        field_cfg = NGPFieldConfig()
     sd = SnapshotConfig()
     for key, off in (("dedup_ratio", 0.0), ("frame_dispatch", False),
                      ("bake_host", False)):

@@ -2,9 +2,10 @@
 
 ``NeRFScene.state_dict()`` of the JAX package holds its parameter tree as
 NumPy arrays (``{"geo": {"table", "mlp": {"w": [...]}}, "app": ...}``,
-weights ``[din, dout]``) and the occupancy grid as a flat uint8 array. The
-port keeps the same tree and layout, so converting is a copy into tensors
-on the chosen device.
+weights ``[din, dout]``) and the occupancy grid as a flat uint8 array. A
+table is the brick grid's [L, R, 64 * F] or the hash grid's [L, F, T]
+(feature-major). The port keeps the same tree and layouts, so converting
+is a copy into tensors on the chosen device, and back.
 """
 
 from __future__ import annotations
@@ -22,6 +23,19 @@ def params_from_jax(tree, device="cpu"):
         return [params_from_jax(v, device) for v in tree]
     # a copy: the caller's arrays may be read-only (views of JAX arrays)
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+def field_params_from_jax(tree, field_cfg, device="cpu") -> dict:
+    """An NGP field's ``{"geo", "app"}`` tree -> tensors on ``device``,
+    refused unless each head's table has the shape of ``field_cfg``'s grid
+    (a brick checkpoint does not load into a hash field, nor back)."""
+    want = tuple(field_cfg.grid.table_shape)
+    for head in ("geo", "app"):
+        got = tuple(np.shape(tree[head]["table"]))
+        if got != want:
+            raise ValueError(f"{head} table {got} does not match the field's "
+                             f"grid {type(field_cfg.grid).__name__} {want}")
+    return params_from_jax(tree, device)
 
 
 def occ_grid_from_jax(grid, device="cpu") -> torch.Tensor:

@@ -1,16 +1,22 @@
-"""The NGP radiance field on the brick grid.
+"""The NGP radiance field on the brick grid or the hash grid.
 
-Counterpart of ``perf_tpu/fields/ngp.py:64-200``: two independent heads,
-each a brick-grid encode into a bias-free MLP. ``geo`` is in -> 64 -> 1
-with ``trunc_exp``; ``app`` is in -> 64 -> 64 -> 3 with a sigmoid. The
-AABB [-1, 1]^3 maps to [0, 1]; outside it the density is selected to 0
-(``where``, never ``inf * 0``) and the colour multiplied by 0.
+Counterpart of ``perf_tpu/fields/ngp.py:39-200``: two independent heads,
+each a grid encode into a bias-free MLP. ``geo`` is in -> 64 -> 1 with
+``trunc_exp``; ``app`` is in -> 64 -> 64 -> 3 with a sigmoid. The AABB
+[-1, 1]^3 maps to [0, 1]; outside it the density is selected to 0
+(``where``, never ``inf * 0``) and the colour multiplied by 0. The grid is
+a ``BrickGridConfig`` or a ``HashGridConfig`` (the default, the
+reference-parity layout); each owns its table's init and its encodes
+(``init_table``, ``encode_coords``, ``encode_coords_plain``,
+``encode_ray``).
 
-``field_eval`` is the fused CUDA kernel (``kernels/csrc/field_eval.cu``)
-for CUDA tensors and ``field_eval_plain`` for CPU tensors (serving). The
-training path queries ray-structured samples through ``query_density_ray``
-/ ``query_rgb_ray``: the ``brick_encode`` kernels with level strides, then
-the MLP under autograd.
+Serving evaluates both heads at points through ``field_eval``: for a brick
+grid the fused CUDA kernel (``kernels/csrc/field_eval.cu``), for a hash
+grid the ``hash_encode`` kernel of each head followed by the heads' plain
+MLPs (the dot products JAX leaves to XLA); ``field_eval_plain`` for CPU
+tensors. The training path queries ray-structured samples through
+``query_density_ray`` / ``query_rgb_ray``: the grid's encode kernels with
+level strides, then the MLP under autograd.
 """
 
 from __future__ import annotations
@@ -20,8 +26,8 @@ import dataclasses
 import torch
 
 from ..kernels import cuda
-from ..kernels.brickgrid import (BrickGridConfig, brick_encode,
-                                 brick_encode_ray, level_table)
+from ..kernels.brickgrid import BrickGridConfig, level_table
+from ..kernels.hashgrid import HashGridConfig
 from .mlp import ngp_mlp_apply_channels, ngp_mlp_init
 
 
@@ -47,7 +53,7 @@ trunc_exp = TruncExp.apply
 class NGPFieldConfig:
     aabb_min: float = -1.0
     aabb_max: float = 1.0
-    grid: BrickGridConfig = BrickGridConfig()
+    grid: HashGridConfig | BrickGridConfig = HashGridConfig()
     n_neurons: int = 64
     geo_hidden: int = 1
     app_hidden: int = 2
@@ -56,12 +62,9 @@ class NGPFieldConfig:
 def _init_head(generator: torch.Generator, cfg: NGPFieldConfig, dout: int,
                hidden: int, device) -> dict:
     """Uniform(-1e-4, 1e-4) table and a He-init MLP, as ``perf_tpu``."""
-    g = cfg.grid
-    shape = (g.n_levels, g.n_bricks, g.n_features * 64)
-    table = torch.rand(shape, generator=generator) * 2e-4 - 1e-4
-    return {"table": table.to(device),
-            "mlp": ngp_mlp_init(generator, g.out_dim, dout, cfg.n_neurons,
-                                hidden, device)}
+    return {"table": cfg.grid.init_table(generator, device),
+            "mlp": ngp_mlp_init(generator, cfg.grid.out_dim, dout,
+                                cfg.n_neurons, hidden, device)}
 
 
 def init_geo_params(generator, cfg: NGPFieldConfig, device=None) -> dict:
@@ -94,21 +97,25 @@ def normalize_coords(cfg: NGPFieldConfig, x, y, z):
     return nx, ny, nz, sel
 
 
-def query_density_coords(geo_params: dict, x, y, z,
-                         cfg: NGPFieldConfig) -> torch.Tensor:
-    """Density at world coords given as three same-shape tensors."""
+def _encode_coords(cfg: NGPFieldConfig, plain: bool):
+    return cfg.grid.encode_coords_plain if plain else cfg.grid.encode_coords
+
+
+def query_density_coords(geo_params: dict, x, y, z, cfg: NGPFieldConfig,
+                         plain: bool = False) -> torch.Tensor:
+    """Density at world coords given as three same-shape tensors
+    (``plain``: through the grid's plain encode only)."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
-    feats = brick_encode(geo_params["table"], torch.stack([nx, ny, nz], -1),
-                         cfg.grid)
+    feats = _encode_coords(cfg, plain)(geo_params["table"], nx, ny, nz)
     (raw,) = ngp_mlp_apply_channels(geo_params["mlp"], feats)
     return torch.where(sel, trunc_exp(raw), torch.zeros_like(raw))
 
 
-def query_rgb_coords(app_params: dict, x, y, z, cfg: NGPFieldConfig):
+def query_rgb_coords(app_params: dict, x, y, z, cfg: NGPFieldConfig,
+                     plain: bool = False):
     """RGB at world coords -> tuple (r, g, b)."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
-    feats = brick_encode(app_params["table"], torch.stack([nx, ny, nz], -1),
-                         cfg.grid)
+    feats = _encode_coords(cfg, plain)(app_params["table"], nx, ny, nz)
     r, g, b = ngp_mlp_apply_channels(app_params["mlp"], feats,
                                      out_activation=torch.sigmoid)
     s = sel.float()
@@ -120,8 +127,7 @@ def query_density_ray(geo_params: dict, x, y, z, cfg: NGPFieldConfig,
     """Density at ray-structured world coords [N, S] with per-level strides,
     differentiable in the head's table and MLP."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
-    feats = brick_encode_ray(geo_params["table"], nx, ny, nz, cfg.grid,
-                             strides)
+    feats = cfg.grid.encode_ray(geo_params["table"], nx, ny, nz, strides)
     (raw,) = ngp_mlp_apply_channels(geo_params["mlp"], feats)
     return torch.where(sel, trunc_exp(raw), torch.zeros_like(raw))
 
@@ -130,21 +136,25 @@ def query_rgb_ray(app_params: dict, x, y, z, cfg: NGPFieldConfig,
                   strides: tuple):
     """RGB at ray-structured world coords [N, S] -> (r, g, b)."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
-    feats = brick_encode_ray(app_params["table"], nx, ny, nz, cfg.grid,
-                             strides)
+    feats = cfg.grid.encode_ray(app_params["table"], nx, ny, nz, strides)
     r, g, b = ngp_mlp_apply_channels(app_params["mlp"], feats,
                                      out_activation=torch.sigmoid)
     s = sel.float()
     return r * s, g * s, b * s
 
 
+def _eval_heads(params: dict, xyz: torch.Tensor, cfg: NGPFieldConfig,
+                plain: bool) -> torch.Tensor:
+    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    sig = query_density_coords(params["geo"], x, y, z, cfg, plain)
+    r, g, b = query_rgb_coords(params["app"], x, y, z, cfg, plain)
+    return torch.stack([sig, r, g, b], dim=-1)
+
+
 def field_eval_plain(params: dict, xyz: torch.Tensor,
                      cfg: NGPFieldConfig) -> torch.Tensor:
     """xyz [N, 3] world coords -> [N, 4] float32 (sigma, r, g, b)."""
-    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
-    sig = query_density_coords(params["geo"], x, y, z, cfg)
-    r, g, b = query_rgb_coords(params["app"], x, y, z, cfg)
-    return torch.stack([sig, r, g, b], dim=-1)
+    return _eval_heads(params, xyz, cfg, plain=True)
 
 
 _FIELD_EVAL = cuda.register(cuda.CudaKernel(
@@ -166,6 +176,9 @@ def pack_field_weights(params: dict) -> torch.Tensor:
 def field_eval_cuda(params: dict, xyz: torch.Tensor,
                     cfg: NGPFieldConfig) -> torch.Tensor:
     g = cfg.grid
+    if not g.fused_field:
+        raise ValueError("field_eval kernel takes a brick grid; a hash grid "
+                         "goes through field_eval")
     if (g.n_features != 2 or g.n_levels > 16 or cfg.n_neurons != 64
             or cfg.geo_hidden != 1 or cfg.app_hidden != 2):
         raise ValueError("field_eval kernel takes 2 features, <= 16 levels, "
@@ -194,10 +207,13 @@ def field_eval_cuda(params: dict, xyz: torch.Tensor,
 
 def field_eval(params: dict, xyz: torch.Tensor,
                cfg: NGPFieldConfig) -> torch.Tensor:
-    """(sigma, r, g, b) [N, 4] at world points [N, 3]: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    """(sigma, r, g, b) [N, 4] at world points [N, 3]. CUDA tensors: the
+    fused ``field_eval`` kernel (brick grid), or each head's ``hash_encode``
+    kernel and its MLP (hash grid); CPU tensors: the plain version."""
     if xyz.is_cuda:
-        return field_eval_cuda(params, xyz, cfg)
+        if cfg.grid.fused_field:
+            return field_eval_cuda(params, xyz, cfg)
+        return _eval_heads(params, xyz, cfg, plain=False)
     if xyz.device.type != "cpu":
         raise ValueError(f"field_eval: unsupported device {xyz.device}")
     return field_eval_plain(params, xyz, cfg)

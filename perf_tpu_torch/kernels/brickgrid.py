@@ -24,11 +24,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import ClassVar
 
 import numpy as np
 import torch
 
 from . import cuda
+from .hashgrid import coarse_coords, kernel_plan, level_plan, lerp_upsample
 
 PRIMES = (1, 2654435761, 805459861)
 BRICK = 3          # voxels per brick edge
@@ -45,6 +47,8 @@ class BrickGridConfig:
     # 'linear' (the NGP field) or 'smoothstep' (the sphere field; only
     # brick_encode_stacked_grad reads it, and takes only smoothstep)
     interpolation: str = "linear"
+    # the fused field_eval and occ_prune kernels take this grid
+    fused_field: ClassVar[bool] = True
 
     @classmethod
     def sphere_field(cls, fine_res: int = 2048, n_levels: int = 16,
@@ -73,6 +77,31 @@ class BrickGridConfig:
 
     def level_hashed(self, level: int) -> bool:
         return self.level_bricks(level) ** 3 > self.n_bricks
+
+    @property
+    def table_shape(self) -> tuple:
+        return (self.n_levels, self.n_bricks, self.n_features * 64)
+
+    def level_lookup(self, level: int) -> tuple:
+        """(res, bricks per axis, hashed): the level's columns of the
+        kernels' level plan."""
+        return (self.level_res(level), self.level_bricks(level),
+                int(self.level_hashed(level)))
+
+    def init_table(self, generator: torch.Generator, device=None):
+        """[L, R, 64 * F] float32, Uniform(-1e-4, 1e-4)."""
+        table = torch.rand(self.table_shape, generator=generator) * 2e-4 - 1e-4
+        return table.to(device)
+
+    def encode_coords(self, table, x, y, z) -> torch.Tensor:
+        """Point form, coords [...] in [0, 1] -> [..., L*F]: the plain
+        encode (CUDA points go through the fused kernels instead)."""
+        return brick_encode(table, torch.stack([x, y, z], -1), self)
+
+    encode_coords_plain = encode_coords
+
+    def encode_ray(self, table, nx, ny, nz, strides: tuple) -> torch.Tensor:
+        return brick_encode_ray(table, nx, ny, nz, self, strides)
 
 
 def brick_index(bx, by, bz, nb: int, table_rows: int) -> torch.Tensor:
@@ -137,28 +166,6 @@ def brick_encode(table: torch.Tensor, x: torch.Tensor,
 
 # -- the training encode: ray-structured, per-level strides, with gradient ---
 
-def level_plan(cfg: BrickGridConfig, strides: tuple, n_rays: int,
-               n_samples: int) -> tuple:
-    """Rows (res, bricks per axis, hashed, stride, points per ray, first
-    point) per level, and the total number of points. A level of stride k
-    > 1 reads samples 0, k, ..., S-k and S-1 of each ray; stride 1 reads
-    every sample."""
-    plan, first = [], 0
-    for lvl, k in enumerate(strides):
-        if n_samples % k:
-            raise ValueError(f"stride {k} does not divide {n_samples} samples")
-        npts = n_samples if k == 1 else n_samples // k + 1
-        plan.append((cfg.level_res(lvl), cfg.level_bricks(lvl),
-                     int(cfg.level_hashed(lvl)), k, npts, first))
-        first += n_rays * npts
-    return plan, first
-
-
-def coarse_coords(x: torch.Tensor, k: int) -> torch.Tensor:
-    """[N, S] -> the samples a stride-k level reads, [N, S/k + 1]."""
-    return x if k == 1 else torch.cat([x[:, ::k], x[:, -1:]], dim=1)
-
-
 def brick_points_plain(table: torch.Tensor, nx, ny, nz,
                        cfg: BrickGridConfig, strides: tuple) -> torch.Tensor:
     """Features [points, F] of every level's points, level after level."""
@@ -187,22 +194,11 @@ def brick_points_grad_plain(table_shape, nx, ny, nz, cfg: BrickGridConfig,
     return gt
 
 
-@functools.lru_cache(maxsize=64)
-def _level_table(plan: tuple, device: torch.device) -> torch.Tensor:
-    """The plan as an int32 device tensor, made once per plan: a fresh
-    host-to-device copy would make every launch wait for the queue."""
-    return torch.tensor(plan, dtype=torch.int32, device=device)
-
-
 def _kernel_plan(cfg: BrickGridConfig, strides, nx, table_shape):
-    n, s = nx.shape
-    plan, total = level_plan(cfg, strides, n, s)
-    if total >= 2 ** 31:
-        raise ValueError(f"{total} points: the kernel indexes points in int32")
     if tuple(table_shape) != (cfg.n_levels, cfg.n_bricks, 128):
         raise ValueError("brick_encode kernel takes a [L, rows, 128] table "
                          f"(2 features), got {tuple(table_shape)}")
-    return _level_table(tuple(plan), nx.device), total
+    return kernel_plan(cfg, strides, nx)
 
 
 def brick_points_cuda(table: torch.Tensor, nx, ny, nz, cfg: BrickGridConfig,
@@ -279,7 +275,6 @@ def brick_encode_ray(table: torch.Tensor, nx, ny, nz, cfg: BrickGridConfig,
     """Ray-structured encode: normalised coords [N, S] -> [N, S, L*F]. Level
     l is evaluated at its strided points and lerped back to all S samples
     (``brick_encode_ray``)."""
-    from .hashgrid import lerp_upsample
     nx, ny, nz = (a.contiguous() for a in (nx, ny, nz))
     n, s = nx.shape
     flat = BrickEncode.apply(table, nx, ny, nz, cfg, tuple(strides))

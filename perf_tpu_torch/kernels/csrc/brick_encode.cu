@@ -5,12 +5,10 @@
 // custom VJP (_ci_fwd / _ci_bwd), as called per level by brick_encode_ray
 // with the per-level ray strides of hashgrid.level_strides.
 //
-// Points: level l with stride k reads, for each ray, the samples 0, k, 2k,
-// ..., S-k and S-1 (npts = S/k + 1), or every sample when k == 1
-// (npts = S). The lerp back to S samples runs around the kernel in PyTorch
-// (kernels/brickgrid.py), so the backward receives the coarse points'
-// cotangents already summed in float32, as JAX's transpose of the lerp
-// delivers them.
+// Points: the level plan of ray_points.cuh. The lerp back to S samples
+// runs around the kernel in PyTorch (kernels/brickgrid.py), so the backward
+// receives the coarse points' cotangents already summed in float32, as
+// JAX's transpose of the lerp delivers them.
 //
 // Forward: find the point's brick row (dense, or the uint32 prime hash
 // masked to the table), read the 8 interpolation corners' two bf16 features
@@ -35,27 +33,13 @@
 #include <stdint.h>
 
 #include "brick_common.cuh"
+#include "ray_points.cuh"
 
 namespace {
 
-constexpr int MAX_LEVELS = 32;
-constexpr int LV = 6;          // res, nb, hashed, stride, npts, first point
 constexpr int THREADS = 256;
 constexpr int ROW = 128;       // 64 corners x 2 features
-
-// The level of global point g and the sample it reads: returns the level,
-// sets ray and sample.
-__device__ __forceinline__ int point_of(long long g, const int* lv, int n_levels,
-                                        int n_samples, long long& ray, int& s) {
-    int l = 0;
-    while (l + 1 < n_levels && g >= (long long)lv[(l + 1) * LV + 5]) ++l;
-    const int k = lv[l * LV + 3], npts = lv[l * LV + 4];
-    long long local = g - (long long)lv[l * LV + 5];
-    ray = local / npts;
-    int p = (int)(local - ray * npts);
-    s = (k == 1) ? p : (p == npts - 1 ? n_samples - 1 : p * k);
-    return l;
-}
+constexpr int LV = PLAN_COLS;  // res, nb, hashed, stride, npts, first point
 
 __global__ void __launch_bounds__(THREADS)
 brick_fwd_kernel(const float* __restrict__ nx, const float* __restrict__ ny,
@@ -63,14 +47,13 @@ brick_fwd_kernel(const float* __restrict__ nx, const float* __restrict__ ny,
                  const __nv_bfloat16* __restrict__ table, int rows,
                  const int* __restrict__ levels, int n_levels, long long total,
                  float* __restrict__ out) {
-    __shared__ int lv[MAX_LEVELS * LV];
-    for (int i = threadIdx.x; i < n_levels * LV; i += blockDim.x) lv[i] = levels[i];
-    __syncthreads();
+    __shared__ int lv[PLAN_MAX_LEVELS * PLAN_COLS];
+    load_plan(lv, levels, n_levels);
     for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total;
          g += (long long)gridDim.x * blockDim.x) {
         long long ray;
         int s;
-        const int l = point_of(g, lv, n_levels, n_samples, ray, s);
+        const int l = plan_point(g, lv, n_levels, n_samples, ray, s);
         const long long si = ray * n_samples + s;
         const BrickCorner c = brick_locate(nx[si], ny[si], nz[si], lv[l * LV],
                                            lv[l * LV + 1], lv[l * LV + 2], rows);
@@ -85,16 +68,15 @@ brick_bwd_kernel(const float* __restrict__ nx, const float* __restrict__ ny,
                  const float* __restrict__ nz, int n_samples, int rows,
                  const int* __restrict__ levels, int n_levels, long long total,
                  const float* __restrict__ grad_out, float* __restrict__ grad_table) {
-    __shared__ int lv[MAX_LEVELS * LV];
-    for (int i = threadIdx.x; i < n_levels * LV; i += blockDim.x) lv[i] = levels[i];
-    __syncthreads();
+    __shared__ int lv[PLAN_MAX_LEVELS * PLAN_COLS];
+    load_plan(lv, levels, n_levels);
     for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total;
          g += (long long)gridDim.x * blockDim.x) {
         const float g0 = grad_out[2 * g], g1 = grad_out[2 * g + 1];
         if (g0 == 0.0f && g1 == 0.0f) continue;   // adds only zeros
         long long ray;
         int s;
-        const int l = point_of(g, lv, n_levels, n_samples, ray, s);
+        const int l = plan_point(g, lv, n_levels, n_samples, ray, s);
         const long long si = ray * n_samples + s;
         const BrickCorner c = brick_locate(nx[si], ny[si], nz[si], lv[l * LV],
                                            lv[l * LV + 1], lv[l * LV + 2], rows);
@@ -108,21 +90,15 @@ brick_bwd_kernel(const float* __restrict__ nx, const float* __restrict__ ny,
     }
 }
 
-unsigned grid_for(long long total) {
-    long long blocks = (total + THREADS - 1) / THREADS;
-    if (blocks > 132 * 32) blocks = 132 * 32;
-    return (unsigned)blocks;
-}
-
 }  // namespace
 
 extern "C" int brick_encode_fwd_launch(
         const void* nx, const void* ny, const void* nz, int n_samples,
         const void* table, int rows, const void* levels, int n_levels,
         long long total, void* out, void* stream) {
-    if (n_levels < 1 || n_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    if (n_levels < 1 || n_levels > PLAN_MAX_LEVELS) return (int)cudaErrorInvalidValue;
     if (total <= 0) return (int)cudaSuccess;
-    brick_fwd_kernel<<<grid_for(total), THREADS, 0, (cudaStream_t)stream>>>(
+    brick_fwd_kernel<<<plan_grid(total, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)nx, (const float*)ny, (const float*)nz, n_samples,
         (const __nv_bfloat16*)table, rows, (const int*)levels, n_levels, total,
         (float*)out);
@@ -133,9 +109,9 @@ extern "C" int brick_encode_bwd_launch(
         const void* nx, const void* ny, const void* nz, int n_samples, int rows,
         const void* levels, int n_levels, long long total, const void* grad_out,
         void* grad_table, void* stream) {
-    if (n_levels < 1 || n_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    if (n_levels < 1 || n_levels > PLAN_MAX_LEVELS) return (int)cudaErrorInvalidValue;
     if (total <= 0) return (int)cudaSuccess;
-    brick_bwd_kernel<<<grid_for(total), THREADS, 0, (cudaStream_t)stream>>>(
+    brick_bwd_kernel<<<plan_grid(total, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)nx, (const float*)ny, (const float*)nz, n_samples, rows,
         (const int*)levels, n_levels, total, (const float*)grad_out,
         (float*)grad_table);

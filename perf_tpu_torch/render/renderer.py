@@ -44,8 +44,8 @@ from ..kernels.hashgrid import level_strides
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """The JAX ``RenderConfig`` without the knobs of unported paths
-    (``remat``, ``eval_chunk``, ``adaptive_eval``, ``run_caps``) and of the
-    flat march (``hier_march``: the march is always hierarchical)."""
+    (``remat``, ``adaptive_eval``, ``run_caps``) and of the flat march
+    (``hier_march``: the march is always hierarchical)."""
     near: float = 0.0
     far: float = 1.5
     step: float = 5e-4
@@ -63,6 +63,7 @@ class RenderConfig:
     train_rgb_windows: int = 4
     eval_rgb_windows: int = 4
     sample_stride: int = 1
+    eval_chunk: int = 32768   # rays per eval-render chunk (render_image)
 
     @property
     def n_march(self) -> int:
@@ -646,10 +647,13 @@ def shade_rays_eval(params: dict, field_cfg, rays_o, rays_d, t_mid, valid,
 
 
 def render_image(params: dict, field_cfg, occ_grid, rays, cfg: RenderConfig,
-                 query_keys=("rgb", "distance"), chunk: int = 8192) -> dict:
+                 query_keys=("rgb", "distance"),
+                 chunk: int | None = None) -> dict:
     """Eval render of a ray grid ``rays`` [..., 3] through the field (the
     JAX ``render_image`` with ``adaptive_eval=False``): the eval march and
-    shade in chunks of ``chunk`` rays at ``cfg.max_samples``."""
+    shade in chunks of ``chunk`` rays (default ``cfg.eval_chunk``) at
+    ``cfg.max_samples``."""
+    chunk = chunk or cfg.eval_chunk
     pre = rays.o.shape[:-1]
     o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
     coarse = coarse_occ_grid(occ_grid, cfg.occ_res)

@@ -38,7 +38,8 @@ import os
 import numpy as np
 import torch
 
-from ..convert import occ_grid_from_jax, params_from_jax, params_to_numpy
+from ..convert import (field_params_from_jax, occ_grid_from_jax,
+                       params_to_numpy)
 from ..core import Rays, gen_pano_rays
 from ..core.optim import GuardedAdam
 from ..fields import NGPFieldConfig, init_ngp_params, reset_geo
@@ -74,14 +75,16 @@ def _prune_points(v: torch.Tensor, res: int) -> torch.Tensor:
     return ((ijk.to(torch.float32) + 0.5) / res - 0.5) * 2.0
 
 
-def field_prune_occ_plain(geo: dict, field_cfg: NGPFieldConfig,
-                          occ: torch.Tensor, prev: torch.Tensor, res: int,
-                          jitter: torch.Tensor) -> torch.Tensor:
+def _prune_by_queries(geo: dict, field_cfg: NGPFieldConfig,
+                      occ: torch.Tensor, prev: torch.Tensor, res: int,
+                      jitter: torch.Tensor, plain: bool) -> torch.Tensor:
     """The pruned grid (``_field_prune_occ``): a voxel of ``occ`` is kept iff
     the max density over its centre and the jittered points (``jitter``
     [n_jitter, chunk, 3] uniforms, voxel v reads row v mod chunk) passes
     ``density * 5e-3 > PRUNE_TAU``, or it is absent from ``prev``. Voxels with
-    ``occ == 0`` or ``prev == 0`` keep ``occ`` without a field query."""
+    ``occ == 0`` or ``prev == 0`` keep ``occ`` without a field query; the
+    others' densities are geometry-head queries (``plain``: through the
+    grid's plain encode)."""
     out = occ.clone()
     v = torch.nonzero((occ != 0) & (prev != 0))[:, 0]
     if v.numel() == 0:
@@ -93,11 +96,19 @@ def field_prune_occ_plain(geo: dict, field_cfg: NGPFieldConfig,
     for j in range(-1, jitter.shape[0]):
         pts = base if j < 0 else base + (jit[j] - 0.5) * (2.0 / res)
         d = query_density_coords(geo, pts[:, 0], pts[:, 1], pts[:, 2],
-                                 field_cfg)
+                                 field_cfg, plain)
         dens = d if dens is None else torch.maximum(dens, d)
     out[v] = torch.where((dens * 5e-3) > PRUNE_TAU, occ[v],
                          torch.zeros_like(occ[v]))
     return out
+
+
+def field_prune_occ_plain(geo: dict, field_cfg: NGPFieldConfig,
+                          occ: torch.Tensor, prev: torch.Tensor, res: int,
+                          jitter: torch.Tensor) -> torch.Tensor:
+    """``_prune_by_queries`` through the plain encodes."""
+    return _prune_by_queries(geo, field_cfg, occ, prev, res, jitter,
+                             plain=True)
 
 
 _PRUNE = cuda.register(cuda.CudaKernel(
@@ -110,8 +121,10 @@ _PRUNE = cuda.register(cuda.CudaKernel(
 def field_prune_occ_cuda(geo: dict, field_cfg: NGPFieldConfig,
                          occ: torch.Tensor, prev: torch.Tensor, res: int,
                          jitter: torch.Tensor) -> torch.Tensor:
-    """Kernel version of ``field_prune_occ_plain``."""
+    """Kernel version of ``field_prune_occ_plain`` (brick grids)."""
     g = field_cfg.grid
+    if not g.fused_field:
+        raise ValueError("occ_prune kernel takes a brick grid")
     if (g.n_features != 2 or g.n_levels > 16 or field_cfg.n_neurons != 64
             or field_cfg.geo_hidden != 1):
         raise ValueError("occ_prune kernel takes 2 features, <= 16 levels "
@@ -139,10 +152,16 @@ def field_prune_occ_cuda(geo: dict, field_cfg: NGPFieldConfig,
 
 def field_prune_occ(geo: dict, field_cfg: NGPFieldConfig, occ, prev,
                     res: int, jitter) -> torch.Tensor:
-    """The ``occ_prune`` kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    """CUDA tensors: the ``occ_prune`` kernel (brick grid), or the shell's
+    density queries through the ``hash_encode`` kernel and the geometry
+    head (hash grid, as JAX's prune queries ``query_density`` whatever the
+    grid); CPU tensors: the plain version."""
     if occ.is_cuda:
-        return field_prune_occ_cuda(geo, field_cfg, occ, prev, res, jitter)
+        if field_cfg.grid.fused_field:
+            return field_prune_occ_cuda(geo, field_cfg, occ, prev, res,
+                                        jitter)
+        return _prune_by_queries(geo, field_cfg, occ, prev, res, jitter,
+                                 plain=False)
     if occ.device.type != "cpu":
         raise ValueError(f"field_prune_occ: unsupported device {occ.device}")
     return field_prune_occ_plain(geo, field_cfg, occ, prev, res, jitter)
@@ -457,7 +476,8 @@ class NeRFScene:
         }
 
     def load_state_dict(self, state: dict):
-        self.params = params_from_jax(state["params"], self.device)
+        self.params = field_params_from_jax(state["params"], self.field_cfg,
+                                            self.device)
         self.occ_grid = occ_grid_from_jax(state["occ_grid"], self.device)
         self.snapshot = None   # loaded field -> any existing bake is stale
         self.global_iter_geo = int(state["global_iter_geo"])

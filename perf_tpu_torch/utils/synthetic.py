@@ -73,8 +73,7 @@ def random_field_params(seed: int, field_cfg: NGPFieldConfig,
     g = field_cfg.grid
 
     def head(dout: int, hidden: int) -> dict:
-        table = rng.uniform(-table_scale, table_scale,
-                            (g.n_levels, g.n_bricks, g.n_features * 64))
+        table = rng.uniform(-table_scale, table_scale, g.table_shape)
         dims = [g.out_dim] + [field_cfg.n_neurons] * hidden + [dout]
         ws = [(rng.standard_normal((a, b)) * math.sqrt(2.0 / a))
               .astype(np.float32) for a, b in zip(dims[:-1], dims[1:])]

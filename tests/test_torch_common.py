@@ -82,6 +82,41 @@ def assert_close_up_to_bf16_ties(got, ref, rtol: float, max_frac: float,
     assert np.all(err <= rtol_tie * scale), (err / scale).max()
 
 
+# -- the hash-grid field (scene.field.kind: hash) --------------------------------
+
+# 6 levels from res 4 to 41 in 1024 rows: levels 0 and 1 dense, 2-5 hashed
+HASH_GRID = dict(n_levels=6, n_features=2, log2_table_size=10, base_res=4,
+                 per_level_scale=1.6)
+# the same grid as CLI overrides of configs/nerf.yaml
+HASH_CLI = ["scene.field.kind=hash", "scene.field.n_levels=6",
+            "scene.field.log2_table_size=10", "scene.field.base_res=4",
+            "scene.field.per_level_scale=1.6"]
+
+
+def hash_fields(**grid):
+    """(JAX NGP field, port NGP field) on the hash grid ``grid`` (default
+    HASH_GRID)."""
+    from perf_tpu.kernels.hashgrid import HashGridConfig as JHash
+    from perf_tpu_torch.kernels import HashGridConfig
+    grid = grid or HASH_GRID
+    return (JField(grid=JHash(**grid)),
+            NGPFieldConfig(grid=HashGridConfig(**grid)))
+
+
+def cube_room_pools(h: int = 32, w: int = 64):
+    """The cube-room pano at h x w (JAX's, as NumPy maps), registered in a
+    JAX and a port pool."""
+    from perf_tpu.train import SupInfoPool as JPool
+    from perf_tpu_torch.train import SupInfoPool
+    pano = render_cube_room_pano(jnp.eye(4), h, w)
+    maps = {k: np.asarray(v) for k, v in pano.items()}
+    jp, tp = JPool(), SupInfoPool()
+    for pool in (jp, tp):
+        pool.register_sup_info(np.eye(4, dtype=np.float32), np.ones((h, w)),
+                               maps["rgb"], maps["distance"], maps["normal"])
+    return maps, jp, tp
+
+
 def test_occ_grid_from_points_matches_jax():
     pano = render_cube_room_pano(jnp.eye(4), 64, 128)
     rays = j_pano(jnp.eye(4), 64, 128)

@@ -54,6 +54,11 @@ from perf_tpu_torch.kernels.brickgrid import (
 from perf_tpu_torch.train.scene import (field_prune_occ,
                                         field_prune_occ_cuda,
                                         field_prune_occ_plain)
+from perf_tpu_torch.kernels.gather import (onehot_gather, onehot_gather_cuda,
+                                           take_gather, take_gather_cuda)
+from perf_tpu_torch.kernels.hashgrid import (
+    HashGridConfig, HashEncode, hash_encode, hash_points_cuda,
+    hash_points_grad_cuda, hash_points_grad_plain, hash_points_plain)
 from perf_tpu_torch.utils import cube_room_occ_grid, random_field_params
 
 # 4 levels (res 8, 16, 32, 64), levels 2 and 3 hashed into 256 rows
@@ -63,6 +68,10 @@ TINY = NGPFieldConfig(grid=BrickGridConfig(n_levels=4, log2_bricks=8,
 # rows
 SPHERE = BrickGridConfig.sphere_field(fine_res=256, n_levels=5,
                                       log2_bricks=6)
+# 6 hash levels (res 4 .. 41), levels 0 and 1 dense, 2-5 hashed into 1024
+# rows
+HASH = HashGridConfig(n_levels=6, log2_table_size=10, base_res=4,
+                      per_level_scale=1.6)
 RENDER = RenderConfig(step=4e-3, occ_res=64, march_coarse=12)
 SNAP = SnapshotConfig(res=48, sample_stride=12, bake_chunk=4096)
 
@@ -124,6 +133,21 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA"):
         field_prune_occ_cuda(params["geo"], TINY, occ, occ, 64,
                              torch.zeros((2, 8, 3)))
+    h_table = torch.zeros(HASH.table_shape)
+    with pytest.raises(ValueError, match="CUDA"):
+        hash_points_cuda(h_table, x, x, x, HASH, (1,) * 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        hash_points_grad_cuda(h_table.shape, x, x, x, HASH, (1,) * 6,
+                              torch.zeros((6 * 32, 2)))
+    smooth = dataclasses.replace(HASH, interpolation="smoothstep")
+    with pytest.raises(ValueError, match="only linear"):
+        hash_points_cuda(h_table, x, x, x, smooth, (1,) * 6)
+    g_table = torch.zeros((4096, 128), dtype=torch.bfloat16)
+    g_rows = torch.zeros(1024, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        take_gather_cuda(g_table, g_rows, 512)
+    with pytest.raises(ValueError, match="CUDA"):
+        onehot_gather_cuda(g_table, g_rows, 512)
 
 
 def test_plain_path_counts_no_launch():
@@ -149,13 +173,20 @@ def test_plain_path_counts_no_launch():
     f, df = brick_encode_stacked_grad(t, torch.rand((6, 3)), SPHERE)
     (f.sum() + df.sum()).backward()
     field_prune_occ(params["geo"], TINY, occ, occ, 64, torch.rand((2, 64, 3)))
+    t = torch.zeros(HASH.table_shape, requires_grad=True)
+    HashEncode.apply(t, x, x, x, HASH, (2, 2, 1, 1, 1, 1)).sum().backward()
+    hash_encode(t, torch.rand((5, 3)), HASH).sum().backward()
+    g_table = torch.zeros((4096, 128), dtype=torch.bfloat16)
+    take_gather(g_table, torch.zeros(256, dtype=torch.int32), 128)
+    onehot_gather(g_table, torch.zeros(256, dtype=torch.int32), 128)
     assert set(cuda.counts()) == {
         "field_eval", "bake_scatter_pack", "march_windows",
         "march_windows_stratified", "snapshot_composite", "brick_encode",
         "brick_encode_bwd",
         "count_windows", "shade_composite", "shade_composite_bwd",
         "occ_grid", "bilinear_sample", "bilinear_sample_bwd",
-        "brick_encode_grad", "brick_encode_grad_bwd", "occ_prune"}
+        "brick_encode_grad", "brick_encode_grad_bwd", "occ_prune",
+        "hash_encode", "hash_encode_bwd", "take_gather", "onehot_gather"}
     assert all(v == 0 for v in cuda.counts().values())
 
 
@@ -163,7 +194,9 @@ def test_importing_the_anchor_slice_never_imports_jax():
     code = ("import sys, perf_tpu_torch.app.runner, perf_tpu_torch.priors, "
             "perf_tpu_torch.inpaint, perf_tpu_torch.pose, "
             "perf_tpu_torch.native, perf_tpu_torch.fields.sphere_field, "
-            "perf_tpu_torch.core.resample; "
+            "perf_tpu_torch.core.resample, perf_tpu_torch.kernels.hashgrid, "
+            "perf_tpu_torch.kernels.gather, "
+            "perf_tpu_torch.tools.bench_pallas_encode; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'perf_tpu.', 'flax', 'optax')) "
             "or m == 'perf_tpu']; "
@@ -414,3 +447,81 @@ def test_occ_prune_kernel_matches_plain(gpu):
     assert int((got != ref).sum()) <= 2
     shell = (occ != 0) & (prev != 0)
     assert 0 < int((ref[shell] == 0).sum()) < int(shell.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [512, 1024])
+def test_row_gather_kernels_equal_plain_bitwise(gpu, block):
+    dev = gpu[0]
+    rng = np.random.default_rng(block)
+    table = torch.from_numpy(rng.standard_normal((4096, 128)).astype(
+        np.float32)).to(torch.bfloat16).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 4096, 3 * block).astype(
+        np.int32)).to(dev)
+    ref = table[rows.long()].view(torch.int16)
+    for name, fn in (("take_gather", take_gather),
+                     ("onehot_gather", onehot_gather)):
+        before = cuda.counts()[name]
+        got = fn(table, rows, block)
+        assert cuda.counts()[name] == before + 1
+        # one non-zero product per output on the tensor cores: bitwise
+        assert torch.equal(got.view(torch.int16), ref), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(1, 8), (257, 32)])
+def test_hash_encode_kernels_match_plain(gpu, n, s):
+    dev = gpu[0]
+    rng = np.random.default_rng(n)
+    x, y, z = (torch.from_numpy(np.sort(rng.uniform(-0.05, 1.05, (n, s)), 1)
+                                .astype(np.float32)).to(dev) for _ in range(3))
+    strides = level_strides(HASH, 4e-3, s)
+    assert max(strides) > 1
+    table = torch.from_numpy(rng.uniform(-0.1, 0.1, HASH.table_shape).astype(
+        np.float32)).to(dev)
+    before = cuda.counts()["hash_encode"]
+    got = hash_points_cuda(table, x, y, z, HASH, strides)
+    assert cuda.counts()["hash_encode"] == before + 1
+    ref = hash_points_plain(table, x, y, z, HASH, strides)
+    # the same corners, weights and sums in the same order (no contraction)
+    assert (got - ref).abs().max().item() <= 1e-6
+    g = torch.from_numpy(rng.normal(size=tuple(ref.shape)).astype(
+        np.float32)).to(dev)
+    gt = hash_points_grad_cuda(table.shape, x, y, z, HASH, strides, g)
+    gt_ref = hash_points_grad_plain(table.shape, x, y, z, HASH, strides, g)
+    # the same float32 contributions; float atomics add them in an order
+    # that changes from run to run
+    assert ((gt - gt_ref).norm() / gt_ref.norm()).item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_hash_field_serving_and_prune_launch_the_hash_kernel(gpu):
+    dev, _, occ = gpu
+    fc = NGPFieldConfig(grid=HASH)
+    params = params_from_jax(random_field_params(0, fc, density_gain=0.9),
+                             dev)
+    rng = np.random.default_rng(5)
+    xyz = torch.from_numpy(rng.uniform(-1.1, 1.1, (2049, 3)).astype(
+        np.float32)).to(dev)
+    before = cuda.counts()
+    got = field_eval(params, xyz, fc)
+    after = cuda.counts()
+    assert after["hash_encode"] == before["hash_encode"] + 2     # two heads
+    assert after["field_eval"] == before["field_eval"]
+    ref = field_eval_plain(params, xyz, fc)
+    err, scale = (got - ref).abs(), ref.abs()
+    # the same encode up to float32 rounding; where a feature or hidden unit
+    # sits on a bf16 tie the two may round apart (a few percent)
+    assert (err > 1e-4 * scale + 1e-6).float().mean().item() <= 5e-3
+    assert bool((err <= 0.05 * scale + 1e-6).all())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prev = (occ * (torch.rand(occ.shape, generator=gen, device=dev) > 0.1)
+            ).to(torch.uint8)
+    jitter = torch.rand((2, 5000, 3), generator=gen, device=dev)
+    before = cuda.counts()
+    pruned = field_prune_occ(params["geo"], fc, occ, prev, 64, jitter)
+    after = cuda.counts()
+    assert after["hash_encode"] == before["hash_encode"] + 3
+    assert after["occ_prune"] == before["occ_prune"]
+    want = field_prune_occ_plain(params["geo"], fc, occ, prev, 64, jitter)
+    assert int((pruned != want).sum()) <= 2
