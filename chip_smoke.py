@@ -47,16 +47,32 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    ``mode=serve`` from its checkpoint (a pano and a perspective request).
    Checks: the training phase's, a prune and a preview on the hash field,
    PNGs equal to a direct render, no brick-field kernel launched;
-7. kernels: holds each kernel against its plain PyTorch version on the
+7. sphere: the joint predictor's reference-parity sphere field
+   (``priors.joint.field.encoding=hash priors.joint.field.grad_mode=ad``,
+   the published PeRF's: 16 smoothstep levels of 2^19 rows, fine_res 2048)
+   through the CLI's ``mode=train`` on the centred room without a cache
+   (the bootstrap, 100 + 100 distillation steps, the raw fit, one anchor,
+   no dense frames); then the non-Wild geometry API on the same room: the
+   dataset's ``get_ref_distance`` / ``get_ref_normal`` through the fusion
+   predictors (100 steps each) and ``refine_geometry`` through the geometry
+   refiner at its full width (fine_res 4096, 32,768 directions a step,
+   weight norm, raw head; 100 steps) with ``encoding=hash grad_mode=fd``
+   and with its default (brick + analytic). Checks: the bootstrap's median
+   relative distance error < 0.15, finite registered maps, the hash encode
+   with derivatives launched and the brick one not; finite fused maps,
+   unit refined normals, the refined distance within the JAX test's bar
+   (median relative difference < 0.15) of its input;
+8. kernels: holds each kernel against its plain PyTorch version on the
    same inputs at the shapes of its path (and the training kernels also at
    the pinned 8192 rays x 128 samples), and times both, with
    ``F.grid_sample`` beside the resampler and ``table[rows]`` beside the
    gathers.
 
 Launch counts are zeroed just before each path (gather, train, serve,
-anchor, hash) and read just after it; every kernel of a path must have
-launched there. It prints a ``gather``, a ``train``, a ``serve``, an
-``anchor`` and a ``hash`` summary, the ``kernels``
+anchor, hash, sphere: its CLI run and its API run) and read just after
+it; every kernel of a path must have launched there. It prints a
+``gather``, a ``train``, a ``serve``, an ``anchor``, a ``hash`` and a
+``sphere`` summary, the ``kernels``
 line (each kernel with its launches on its path, error, ms, plain ms,
 library ms and the card's bound for the same work), the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; without
@@ -113,6 +129,10 @@ REPLACES = {
     "onehot_gather": "tools/bench_pallas_encode.py:80",
     "hash_encode": "perf_tpu/kernels/hashgrid.py:104",
     "hash_encode_bwd": "perf_tpu/kernels/hashgrid.py:104",
+    "hash_encode_smooth": "perf_tpu/kernels/hashgrid.py:104",
+    "hash_encode_smooth_bwd": "perf_tpu/kernels/hashgrid.py:104",
+    "hash_encode_grad": "perf_tpu/fields/sphere_field.py:144",
+    "hash_encode_grad_bwd": "perf_tpu/fields/sphere_field.py:144",
 }
 SERVE_KERNELS = ("field_eval", "bake_scatter_pack", "march_windows",
                  "snapshot_composite")
@@ -140,6 +160,21 @@ HASH_PATH = HASH_KERNELS + (
     "snapshot_composite")
 BRICK_FIELD_KERNELS = ("field_eval", "brick_encode", "brick_encode_bwd",
                        "occ_prune")
+# the sphere path's CLI run: the anchor path's kernels with the joint
+# predictor's hash field (hash + ad) in place of its brick one
+SPHERE_KERNELS = ("hash_encode_grad", "hash_encode_grad_bwd")
+SPHERE_PATH = SPHERE_KERNELS + tuple(
+    k for k in ANCHOR_PATH
+    if k not in ("brick_encode_grad", "brick_encode_grad_bwd"))
+SPHERE_ANCHORS = 1
+# its API run: the fusion predictors' resampling, the refiner's hash fd
+# field (smoothstep point encodes) and its default brick + analytic one
+SMOOTH_KERNELS = ("hash_encode_smooth", "hash_encode_smooth_bwd")
+SPHERE_API_PATH = SMOOTH_KERNELS + (
+    "bilinear_sample", "bilinear_sample_bwd", "brick_encode_grad",
+    "brick_encode_grad_bwd")
+REFINER_ITERS = 100          # of the refiner's 5000
+FUSION_ITERS = 100           # of the fusion predictors' 1000
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 FLOP/s off
 # the tensor cores, bf16 FLOP/s on them
 HBM_BPS = 3.35e12
@@ -837,14 +872,14 @@ def compare_train_kernels(runner, seed: int) -> dict:
     return res
 
 
-def write_anchor_room() -> str:
+def write_anchor_room(name: str = "anchor_room") -> str:
     """The anchor phase's input: the cube room seen from its centre at
     2048x1024 as a PNG, without a geometry cache (the dataset bootstraps
     it through the joint predictor)."""
     import torch
     from perf_tpu_torch.utils import render_cube_room_pano
     from perf_tpu_torch.utils.io import png_bytes
-    room = os.path.join(RUN_DIR, "anchor_room")
+    room = os.path.join(RUN_DIR, name)
     if os.path.isdir(room):
         for name in os.listdir(room):
             os.remove(os.path.join(room, name))
@@ -889,11 +924,8 @@ def anchor_phase(overrides: list):
     # the bootstrapped geometry against the room's true distances (the
     # joint predictor's golden bar, tests/test_sphere_analytic.py)
     gt = render_cube_room_pano(torch.eye(4), ROOM_H, ROOM_W)["distance"]
-    gt = gt.numpy()[..., 0]
-    est = runner.dataset.ref_distance[..., 0]
-    rel = np.abs(est / est.mean() - gt / gt.mean()) / (gt / gt.mean())
-    check(float(np.median(rel)) < 0.15,
-          f"bootstrap geometry: median relative error {np.median(rel)}")
+    rel = _median_rel(runner.dataset.ref_distance[..., 0], gt.numpy()[..., 0])
+    check(rel < 0.15, f"bootstrap geometry: median relative error {rel}")
     check(np.isfinite(runner.dataset.ref_normal).all(), "bootstrap normals")
 
     state = load_checkpoint(os.path.join(runner.exp_dir, "checkpoints",
@@ -939,7 +971,7 @@ def anchor_phase(overrides: list):
         "joint_iters_per_phase": JOINT_ITERS,
         "steps": list(TRAIN_STEPS), "train_s": train_s,
         "bootstrap_s": runner.dataset_s,
-        "bootstrap_median_rel_err": float(np.median(rel)),
+        "bootstrap_median_rel_err": rel,
         "raw_fit_s": sum(r["value"] for r in recs
                          if r["tag"] in ("time/fit_geo_sec",
                                          "time/fit_app_sec")
@@ -1308,6 +1340,345 @@ def compare_hash_kernels(runner, served, seed: int) -> dict:
     return res
 
 
+def _median_rel(est, ref) -> float:
+    """Median relative difference of two distance maps, both scaled to mean
+    1 (the priors' distances are up to scale)."""
+    import numpy as np
+    est, ref = np.asarray(est, np.float64), np.asarray(ref, np.float64)
+    return float(np.median(np.abs(est / est.mean() - ref / ref.mean())
+                           / (ref / ref.mean())))
+
+
+def sphere_phase(overrides: list):
+    """The joint predictor's reference-parity field (hash + ad) through the
+    CLI's mode=train: the bootstrap without a cache, the raw fit and
+    SPHERE_ANCHORS anchor; checked. Returns (runner, summary, the last
+    distillation, the anchor's, for ``distill_steps``)."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.__main__ import main as cli_main
+    from perf_tpu_torch.kernels.hashgrid import HashGridConfig
+    from perf_tpu_torch.priors import pano_joint
+    from perf_tpu_torch.utils import render_cube_room_pano
+    made = []                     # each distillation, for the step timing
+    init = pano_joint._Distill.__init__
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made[:] = [self]
+    pano_joint._Distill.__init__ = keep
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = cli_main(["--device", "cuda", "--config-name", "nerf",
+                           *overrides, "mode=train"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        pano_joint._Distill.__init__ = init
+    peak = torch.cuda.max_memory_allocated()
+    field = runner.geo_predictor.cfg.field
+    check((field.encoding, field.grad_mode) == ("hash", "ad")
+          and field.grid == HashGridConfig.sphere_field(fine_res=2048,
+                                                        log2_table_size=19),
+          f"not the full-width reference-parity sphere field: {field}")
+    gt = render_cube_room_pano(torch.eye(4), ROOM_H, ROOM_W)["distance"]
+    rel = _median_rel(runner.dataset.ref_distance[..., 0], gt.numpy()[..., 0])
+    check(rel < 0.15, f"bootstrap geometry: median relative error {rel}")
+    check(np.isfinite(runner.dataset.ref_normal).all(), "bootstrap normals")
+    check(runner.phase == SPHERE_ANCHORS, f"phase {runner.phase}")
+    for info in runner.sup_pool.sup_infos[1:]:
+        for name in ("color_map", "distance_map", "normal_map"):
+            check(np.isfinite(getattr(info, name)).all(), f"anchor {name}")
+    # the anchor's phase timers, its distillation's among them (the
+    # bootstrap runs before the metrics writer exists: bootstrap_s)
+    timers = {r["tag"][5:-4]: r["value"] for r in _metrics(runner.exp_dir)
+              if r["tag"].startswith(("time/joint_", "time/anchor_"))}
+    recs = _metrics(runner.exp_dir)
+    iters = runner.geo_predictor.cfg.iters_per_phase
+    summary = {
+        "field": dataclasses.asdict(field), "anchors": SPHERE_ANCHORS,
+        "joint_iters_per_phase": iters, "steps": list(TRAIN_STEPS),
+        "train_s": train_s, "bootstrap_s": runner.dataset_s,
+        "bootstrap_median_rel_err": rel,
+        "readback_s": timers.get("joint_readback"),
+        "raw_fit_s": sum(r["value"] for r in recs
+                         if r["tag"] in ("time/fit_geo_sec",
+                                         "time/fit_app_sec")
+                         and r["step"] == 0),
+        "anchor_timers_s": timers, "max_memory_allocated": peak}
+    (distill,) = made
+    return runner, summary, distill
+
+
+def distill_steps(distill, iters: int) -> dict:
+    """Warm distillation steps of the second phase, timed (synchronised,
+    median of 10) and traced (5 steps)."""
+    it = iter(range(1 << 30))
+
+    def step():
+        distill.step(iters + next(it) % iters, True)
+    step_ms = host_ms(step, 10)
+    return {"distill_step_ms": step_ms,
+            "distill_profile": profile_device(step, 5, step_ms, unit="step")}
+
+
+def sphere_api_phase(seed: int):
+    """The non-Wild geometry API on the centred room: the dataset's
+    get_ref_distance and get_ref_normal through the fusion predictors,
+    then refine_geometry through the refiner at full width with the hash
+    fd field and with the refiner's default (brick + analytic); checked.
+    Returns a summary."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.data import Dataset
+    from perf_tpu_torch.priors import (
+        FakeCubeRoomDepthPredictor, FakeCubeRoomNormalPredictor,
+        PanoFusionConfig, PanoFusionInvPredictor, PanoFusionNormalPredictor,
+        PanoGeoRefiner, RefinerConfig)
+    from perf_tpu_torch.utils import render_cube_room_pano
+    dev = torch.device("cuda")
+    pano = render_cube_room_pano(torch.eye(4, device=dev), ROOM_H, ROOM_W)
+    ds = Dataset()
+    ds.image, ds.height, ds.width = pano["rgb"], ROOM_H, ROOM_W
+    fusion = PanoFusionConfig(iters=FUSION_ITERS)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"image": [ROOM_H, ROOM_W], "fusion_iters": FUSION_ITERS,
+           "refiner_iters": REFINER_ITERS}
+    t0 = time.perf_counter()
+    dist = ds.get_ref_distance(PanoFusionInvPredictor(
+        FakeCubeRoomDepthPredictor(), fusion, device=dev))
+    torch.cuda.synchronize()
+    out["ref_distance_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    normal = ds.get_ref_normal(PanoFusionNormalPredictor(
+        FakeCubeRoomNormalPredictor(), fusion, device=dev))
+    torch.cuda.synchronize()
+    out["ref_normal_s"] = time.perf_counter() - t0
+    check(bool(torch.isfinite(dist).all()) and bool((dist > 0).all()),
+          "fused distance not finite and positive")
+    check(bool(torch.isfinite(normal).all()), "fused normals not finite")
+    gt = pano["distance"][..., 0].cpu().numpy()
+    out["fused_distance_median_rel_err"] = _median_rel(dist.cpu().numpy(), gt)
+    for tag, kw in (("hash_fd", dict(encoding="hash", grad_mode="fd")),
+                    ("default", {})):
+        cfg = RefinerConfig(n_iters=REFINER_ITERS)
+        cfg = dataclasses.replace(cfg, field=dataclasses.replace(cfg.field,
+                                                                 **kw))
+        t0 = time.perf_counter()
+        r_dist, r_normal = ds.refine_geometry(dist, normal, PanoGeoRefiner(
+            cfg, seed=seed, device=dev))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(bool(torch.isfinite(r_dist).all())
+              and bool(torch.isfinite(r_normal).all()),
+              f"refined maps ({tag}) not finite")
+        norm_err = (r_normal.norm(dim=-1) - 1.0).abs().max().item()
+        check(norm_err < 1e-4, f"refined normals ({tag}) not unit: {norm_err}")
+        d_in = dist.reshape(ROOM_H, ROOM_W).cpu().numpy()
+        d_out = r_dist[..., 0].cpu().numpy()
+        rel = float(np.median(np.abs(d_out - d_in) / d_in))
+        check(rel < 0.15, f"refined distance ({tag}) off its input: {rel}")
+        out[f"refine_{tag}"] = {"field": dataclasses.asdict(cfg.field),
+                                "s": secs, "median_rel_to_input": rel,
+                                "refined_distance_std": float(d_out.std()),
+                                "input_distance_std": float(d_in.std())}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out, dist, normal
+
+
+def refiner_step_check(dist, normal, seed: int) -> dict:
+    """The refiner's distillation step on the card against its plain
+    version on the CPU, at full width, in both field variants of the API
+    run: the same parameters and draws (host-made) in both, two steps (the
+    table's gradient is 0 at the first, whose Adam step gives the second a
+    field with features in use); the loss to 1e-5 and each field tensor's
+    gradient to 1e-3 relative (float atomics, float sums in another
+    order). This holds what the refiner computes; its refined map alone
+    cannot, since at 100 steps it is a constant (PERF.md section 7)."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.core import GuardedAdam
+    from perf_tpu_torch.priors import PanoGeoRefiner, RefinerConfig
+    from perf_tpu_torch.priors.pano_joint import _sp_leaves
+    dev = torch.device("cuda")
+    maps = {"cuda": (dist.reshape(ROOM_H, ROOM_W, 1).contiguous(),
+                     normal.contiguous())}
+    maps["cpu"] = tuple(t.cpu() for t in maps["cuda"])
+    out = {}
+    for tag, kw in (("hash_fd", dict(encoding="hash", grad_mode="fd")),
+                    ("default", {})):
+        cfg = RefinerConfig(n_iters=REFINER_ITERS)
+        cfg = dataclasses.replace(cfg, field=dataclasses.replace(cfg.field,
+                                                                 **kw))
+        card = PanoGeoRefiner(cfg, seed=seed, device=dev)
+        plain = PanoGeoRefiner(cfg, seed=seed, device="cpu")
+        params = card.draws.sphere_init(cfg.field, dev)
+        leaves = _sp_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        adam = GuardedAdam(leaves)
+        gen = torch.Generator().manual_seed(seed)
+        errs = []
+        for i in range(2):
+            dirs = torch.randn((cfg.batch_size, 3), generator=gen)
+            dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+            ortho = torch.randn((cfg.batch_size, 3), generator=gen)
+            p_cpu = {"table": params["table"].detach().cpu(),
+                     "mlp": {k: [t.detach().cpu() for t in v]
+                             for k, v in params["mlp"].items()}}
+            l_cpu = _sp_leaves(p_cpu)
+            for t in l_cpu:
+                t.requires_grad_(True)
+            loss = card.step_loss(params, *maps["cuda"], dirs.to(dev),
+                                  ortho.to(dev))
+            grads = torch.autograd.grad(loss, leaves)
+            loss_ref = plain.step_loss(p_cpu, *maps["cpu"], dirs, ortho)
+            grads_ref = torch.autograd.grad(loss_ref, l_cpu)
+            loss_err = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
+            rel = [float((g.cpu() - r).norm() / max(r.norm().item(), 1e-30))
+                   for g, r in zip(grads, grads_ref)]
+            check(loss_err <= 1e-5,
+                  f"refiner step {i} ({tag}): loss off its plain version "
+                  f"by {loss_err}")
+            check(max(rel) <= 1e-3,
+                  f"refiner step {i} ({tag}): gradients off their plain "
+                  f"version: {rel}")
+            errs.append({"loss_rel_err": loss_err, "grad_rel_norm_err": rel,
+                         "table_grad_norm": float(grads_ref[0].norm())})
+            with torch.no_grad():
+                adam.step(leaves, list(grads), cfg.init_lr)
+        out[tag] = errs
+    return out
+
+
+def compare_sphere_kernels(joint_field, seed: int) -> dict:
+    """The sphere field's hash kernels against their plain versions: the
+    smoothstep encode and its backward at the refiner's 7 x 32,768 points
+    (the fd field's seven directions a step, fine_res 4096), the encode
+    with derivatives and its backward at a distillation step's 60 views x
+    256 directions and a readback chunk of 2^16 (the joint predictor's
+    fine_res 2048)."""
+    import torch
+    from perf_tpu_torch.kernels.hashgrid import (
+        HashGridConfig, hash_encode_grad_cuda, hash_encode_grad_grad_cuda,
+        hash_encode_grad_grad_plain, hash_encode_grad_plain, hash_points_cuda,
+        hash_points_grad_cuda, hash_points_grad_plain, hash_points_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+
+    def directions(n):
+        d = torch.randn((n, 3), generator=gen, device=dev)
+        return d / d.norm(dim=-1, keepdim=True)
+
+    def table_for(grid):
+        return (torch.rand(grid.table_shape, generator=gen, device=dev)
+                - 0.5).contiguous()
+
+    def table_read(grid, n):
+        # per level its 8 corners' rows of 2 float32 a point, at most the
+        # rows it can address: (res + 1)^3 dense, T hashed
+        return sum(min(n * 8, grid.table_size if hashed else look ** 3) * 8
+                   for _, look, hashed in map(grid.level_lookup,
+                                              range(grid.n_levels)))
+    res = {}
+
+    # the refiner's fd field: the direction and its six neighbours at
+    # eps = 1 / fine_res, one point-form encode
+    grid = HashGridConfig.sphere_field(fine_res=4096)
+    table = table_for(grid)
+    d = directions(32768)
+    eps = 1.0 / 4096
+    e = torch.eye(3, device=dev) * eps
+    pts = torch.cat([d] + [d + s * e[a] for a in range(3) for s in (1.0, -1.0)])
+    x = pts * 0.49 + 0.49
+    coords = [x[:, a:a + 1].contiguous() for a in range(3)]
+    strides = (1,) * grid.n_levels
+    n = x.shape[0]
+    total = n * grid.n_levels
+    got = hash_points_cuda(table, *coords, grid, strides)
+    ref = hash_points_plain(table, *coords, grid, strides)
+    g = torch.randn(got.shape, generator=gen, device=dev)
+    b_got = hash_points_grad_cuda(table.shape, *coords, grid, strides, g)
+    b_ref = hash_points_grad_plain(table.shape, *coords, grid, strides, g)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    # the same corners, smoothstep weights and sums in the same order
+    check(err <= 1e-6, f"hash_encode_smooth: {err}")
+    rel = ((b_got - b_ref).norm() / b_ref.norm()).item()
+    # the same float32 contributions, added by float atomics
+    check(rel <= 1e-6, f"hash_encode_smooth_bwd: rel {rel}")
+    res["hash_encode_smooth"] = {
+        "points": n, "levels": grid.n_levels, "max_abs_err": err,
+        "ms": cuda_ms(lambda: hash_points_cuda(table, *coords, grid,
+                                               strides), 20),
+        "plain_ms": cuda_ms(lambda: hash_points_plain(table, *coords, grid,
+                                                      strides), 3),
+        # coordinates once, the corners' rows, 8 B out per (point, level);
+        # per (point, level) ~30 operations to locate it (smoothstep) and
+        # 8 x 6 to weight and sum its corners
+        **bound(n * 12 + table_read(grid, n) + total * 8, total * 78)}
+    res["hash_encode_smooth_bwd"] = {
+        "points": n, "levels": grid.n_levels,
+        "max_abs_err": (b_got - b_ref).abs().max().item(),
+        "rel_norm_err": rel,
+        "ms": cuda_ms(lambda: hash_points_grad_cuda(
+            table.shape, *coords, grid, strides, g), 20),
+        "plain_ms": cuda_ms(lambda: hash_points_grad_plain(
+            table.shape, *coords, grid, strides, g), 3),
+        # coordinates and cotangents in, the float32 gradient out; per
+        # (point, level) ~30 operations to locate it, 8 x 4 for its corners
+        **bound(n * 12 + total * 8 + table.numel() * 4, total * 62)}
+
+    # the joint predictor's ad field: the encode with derivatives
+    grid = joint_field.grid
+    table = table_for(grid)
+    res["hash_encode_grad"], res["hash_encode_grad_bwd"] = {}, {}
+    for tag, n in (("step", 60 * 256), ("readback", 1 << 16)):
+        x = (directions(n) * 0.49 + 0.49).contiguous()
+        total = n * grid.n_levels
+        f, df = hash_encode_grad_cuda(table, x, grid)
+        f_ref, df_ref = hash_encode_grad_plain(table, x, grid)
+        gf = torch.randn(f.shape, generator=gen, device=dev)
+        gd = torch.randn(df.shape, generator=gen, device=dev)
+        gt = hash_encode_grad_grad_cuda(table.shape, x, grid, gf, gd)
+        gt_ref = hash_encode_grad_grad_plain(table.shape, x, grid, gf, gd)
+        torch.cuda.synchronize()
+        ef = max((f - f_ref).abs().max().item(),
+                 ((df - df_ref).abs().max() / df_ref.abs().max()).item())
+        # the same corners, weights, derivative weights and sums in the
+        # same order (no contraction)
+        check(ef <= 1e-6, f"hash_encode_grad ({tag}): {ef}")
+        eb = ((gt - gt_ref).norm() / gt_ref.norm()).item()
+        # the same float32 contributions, added by float atomics
+        check(eb <= 1e-5, f"hash_encode_grad_bwd ({tag}): rel {eb}")
+        res["hash_encode_grad"][tag] = {
+            "points": n, "levels": grid.n_levels, "max_abs_err": ef,
+            "ms": cuda_ms(lambda: hash_encode_grad_cuda(table, x, grid), 20),
+            "plain_ms": cuda_ms(lambda: hash_encode_grad_plain(table, x,
+                                                               grid), 3),
+            # 12 B a point in; the corners' rows; per (point, level) 8 B of
+            # features and 24 B of derivatives out; per (point, level) ~40
+            # operations to locate it, per corner 7 weight products and
+            # 2 x 4 multiply-adds
+            **bound(n * 12 + table_read(grid, n) + total * 32,
+                    total * (40 + 8 * 23))}
+        res["hash_encode_grad_bwd"][tag] = {
+            "points": n, "levels": grid.n_levels,
+            "max_abs_err": (gt - gt_ref).abs().max().item(),
+            "rel_norm_err": eb,
+            "ms": cuda_ms(lambda: hash_encode_grad_grad_cuda(
+                table.shape, x, grid, gf, gd), 20),
+            "plain_ms": cuda_ms(lambda: hash_encode_grad_grad_plain(
+                table.shape, x, grid, gf, gd), 3),
+            # points and both cotangents in, the float32 table gradient
+            # out; per (point, level) ~40 operations to locate it, per
+            # corner 7 weight products and 2 x 4 multiply-adds
+            **bound(n * 12 + total * 32 + table.numel() * 4,
+                    total * (40 + 8 * 23))}
+    return res
+
+
 def compare_gather_kernels(sweep: dict, seed: int) -> dict:
     """Both gathers' rows of the kernels line from the benchmark's ``sweep``
     (every block checked bitwise against ``table[rows]`` and timed there,
@@ -1509,7 +1880,50 @@ def run(seed: int):
     del table_served
     hashp.update(warm_bake_s=sorted(rebake_s)[1], rebake_runs_s=rebake_s)
 
-    # 7. kernels vs their plain versions at the path's shapes
+    # 7. the sphere field's reference-parity variant: mode=train through
+    # the CLI (counted), then the non-Wild geometry API (counted)
+    sphere_image = write_anchor_room("sphere_room")
+    for cut in (f"priors.joint.iters_per_phase 1500 -> {JOINT_ITERS}",
+                f"fit steps 3000 + 1500 -> {TRAIN_STEPS[0]} + "
+                f"{TRAIN_STEPS[1]}",
+                f"anchors 24 -> {SPHERE_ANCHORS}", "no dense frames",
+                f"fusion predictors 1000 -> {FUSION_ITERS} steps",
+                f"refiner 5000 -> {REFINER_ITERS} steps"):
+        log(f"sphere path cut: {cut}")
+    cuda.reset_counts()
+    sphere_runner, sphere, distill = sphere_phase([
+        f"device.base_exp_dir={os.path.join(RUN_DIR, 'sphere_exp')}",
+        f"dataset.image_path={sphere_image}",
+        f"priors.joint.iters_per_phase={JOINT_ITERS}",
+        "priors.joint.field.encoding=hash",
+        "priors.joint.field.grad_mode=ad",
+        f"scene.train_conf.raw_phase_iter_geo={TRAIN_STEPS[0]}",
+        f"scene.train_conf.raw_phase_iter_app={TRAIN_STEPS[1]}",
+        "pose_sampler.traverse_ratios=[0.4]",
+        f"pose_sampler.n_anchors_per_ratio=[{SPHERE_ANCHORS}]"])
+    launches_sphere = cuda.counts()
+    log(f"launches on the sphere path (CLI): {launches_sphere}")
+    check(all(launches_sphere[k] > 0 for k in SPHERE_PATH),
+          f"a kernel never launched on the sphere path: {launches_sphere}")
+    check(all(launches_sphere[k] == 0
+              for k in ("brick_encode_grad", "brick_encode_grad_bwd")),
+          f"the brick sphere encode launched on the hash path: "
+          f"{launches_sphere}")
+    cuda.reset_counts()
+    sphere["api"], api_dist, api_normal = sphere_api_phase(seed)
+    launches_api = cuda.counts()
+    log(f"launches on the sphere path (API): {launches_api}")
+    check(all(launches_api[k] > 0 for k in SPHERE_API_PATH),
+          f"a kernel never launched on the sphere API path: {launches_api}")
+    sphere["api"]["refiner_step_vs_plain"] = refiner_step_check(
+        api_dist, api_normal, seed)
+    del api_dist, api_normal
+    sphere["launches"] = {k: v for k, v in launches_sphere.items() if v}
+    sphere["api"]["launches"] = {k: v for k, v in launches_api.items() if v}
+    sphere.update(distill_steps(distill, JOINT_ITERS))
+    del distill
+
+    # 8. kernels vs their plain versions at the path's shapes
     idx = bake_corners(scene.occ_grid, scene.render_cfg.occ_res,
                        scene.snap_cfg.res)
     serve["bake_corners"] = int(idx.shape[0])
@@ -1524,6 +1938,8 @@ def run(seed: int):
     results.update(compare_anchor_kernels(anchor_runner, seed))
     results.update(compare_hash_kernels(hash_runner, hash_scene, seed))
     results.update(compare_gather_kernels(gather, seed))
+    results.update(compare_sphere_kernels(sphere_runner.geo_predictor.cfg.field,
+                                          seed))
     for name, r in results.items():
         log(f"{name}: {json.dumps(r)}")
     kernels = []
@@ -1537,13 +1953,17 @@ def run(seed: int):
             counted, path = launches_gather[name], "gather"
         elif name in HASH_KERNELS:
             counted, path = launches_hash[name], "hash"
+        elif name in SPHERE_KERNELS:
+            counted, path = launches_sphere[name], "sphere"
+        elif name in SMOOTH_KERNELS:
+            counted, path = launches_api[name], "sphere_api"
         else:
             counted, path = launches_train[name], "train"
         # the training kernels at the smoke scene's shape (the pinned
         # 8192 x 128 shape and the hash encode's bake chunk ride along), the
-        # sphere encode at a distillation step's (a readback chunk rides
-        # along), the gathers at their fastest block (every block rides
-        # along)
+        # sphere encodes with derivatives at a distillation step's (a
+        # readback chunk rides along), the gathers at their fastest block
+        # (every block rides along)
         top = r.get("scene", r.get("step", r))
         kernels.append({
             "name": name, "route": "cuda",
@@ -1559,7 +1979,8 @@ def run(seed: int):
             "library_ms": top.get("library_ms"),
             **{k: r[k] for k in ("pinned", "readback", "bake") if k in r}})
     return {"gather": gather, "train": train, "serve": serve,
-            "anchor": anchor, "hash": hashp, "kernels": kernels}
+            "anchor": anchor, "hash": hashp, "sphere": sphere,
+            "kernels": kernels}
 
 
 def main():

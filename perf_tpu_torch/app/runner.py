@@ -41,7 +41,6 @@ import torch
 
 from ..core import gen_pano_rays, gen_pers_rays
 from ..data import WildDataset
-from ..fields import SphereFieldConfig
 from ..inpaint import FakeInpainter, PanoPersFusionInpainter
 from ..pose import CirclePoseSampler, DenseTravelPoseSampler
 from ..priors import (FakeCubeRoomDepthPredictor, FakeCubeRoomNormalPredictor,
@@ -55,7 +54,9 @@ from ..utils.metrics import MetricsWriter, phase_timer
 
 def train_config(tc) -> TrainConfig:
     """TrainConfig from ``scene.train_conf`` with the JAX runner's keys and
-    defaults; keys of unported paths that are switched on raise."""
+    defaults; keys of unported paths that are switched on raise
+    (``dedup_runs``; ``scan_chunk`` other than 1, JAX's k steps per
+    dispatch)."""
     parity_only = {"vis_video_freq": 25000, "ignore_near": True,
                    "cross_depth_check": True}
     for key, default in parity_only.items():
@@ -65,6 +66,9 @@ def train_config(tc) -> TrainConfig:
                           stacklevel=2)
     if tc.get("dedup_runs", False):
         raise ValueError("train_conf.dedup_runs is not ported")
+    if tc.get("scan_chunk", 1) != 1:
+        raise ValueError(f"train_conf.scan_chunk={tc['scan_chunk']!r}: only 1 "
+                         "is ported (the port runs one step per dispatch)")
 
     def optim(oc):
         return OptimConfig(init_lr=oc["init_lr"], peak_lr=oc["peak_lr"],
@@ -88,10 +92,15 @@ def train_config(tc) -> TrainConfig:
 
 
 def joint_config(conf) -> JointPredictorConfig:
-    """The joint predictor's config from ``priors.joint`` (``scan_chunk`` is
-    read and has no effect: the port steps one at a time)."""
+    """The joint predictor's config from ``priors.joint``, as the JAX
+    runner's ``_joint_cfg``: ``priors.joint.field.*`` replace keys of the
+    joint default field (brick + analytic), so ``encoding=hash`` alone is
+    hash + analytic, which is refused; ``encoding=hash grad_mode=ad`` is
+    the published PeRF's field. ``scan_chunk`` is read and has no effect
+    (the port steps one at a time) but must divide ``iters_per_phase``."""
     over = conf.get_path("priors.joint", {}) or {}
-    kw = {k: over[k] for k in ("gen_res", "local_batch", "iters_per_phase")
+    kw = {k: over[k] for k in
+          ("gen_res", "local_batch", "iters_per_phase", "scan_chunk")
           if k in over}
     if "ratios" in over:
         kw["ratios"] = tuple(over["ratios"])
@@ -100,8 +109,8 @@ def joint_config(conf) -> JointPredictorConfig:
     fkw = {k: fld[k] for k in ("n_levels", "log2_table_size", "fine_res",
                                "encoding", "grad_mode") if k in fld}
     if fkw:
-        cfg = dataclasses.replace(cfg, field=SphereFieldConfig(
-            **{**dataclasses.asdict(cfg.field), **fkw}))
+        cfg = dataclasses.replace(cfg, field=dataclasses.replace(cfg.field,
+                                                                 **fkw))
     return cfg
 
 

@@ -54,11 +54,12 @@ def params_to_numpy(tree):
 
 
 def sphere_field_from_jax(tree, device="cpu") -> dict:
-    """A ``perf_tpu`` sphere field (``{"table", "mlp": {"w": [...], "b":
-    [...]}}``, weights ``[din, dout]``) -> the same tree of float32 tensors;
-    weight-normed fields (``v`` / ``g``) are refused."""
-    if "v" in tree["mlp"]:
-        raise ValueError("weight-normed sphere fields are not ported")
-    return {"table": params_from_jax(tree["table"], device),
-            "mlp": {"w": params_from_jax(list(tree["mlp"]["w"]), device),
-                    "b": params_from_jax(list(tree["mlp"]["b"]), device)}}
+    """A ``perf_tpu`` sphere field (``{"table", "mlp"}``: a brick table [L,
+    R, 128] or a hash table [L, 2, T], float32 as JAX keeps it; an MLP of
+    ``{"w", "b"}`` or, weight-normed, ``{"v", "g", "b"}``, weights ``[din,
+    dout]``) -> the same tree of float32 tensors."""
+    mlp = {k: params_from_jax(list(v), device) for k, v in tree["mlp"].items()}
+    if set(mlp) not in ({"w", "b"}, {"v", "g", "b"}):
+        raise ValueError(f"sphere field MLP keys {sorted(mlp)}: expected w, b "
+                         "or v, g, b")
+    return {"table": params_from_jax(tree["table"], device), "mlp": mlp}

@@ -1,1 +1,1 @@
-from .dataset import WildDataset
+from .dataset import Dataset, WildDataset

@@ -1,6 +1,12 @@
 """The input panorama and its cached reference geometry.
 
-Counterpart of ``perf_tpu/data/dataset.py:66-123`` (``WildDataset``): the
+Counterpart of ``perf_tpu/data/dataset.py:21-123``. ``Dataset`` holds the
+non-Wild geometry paths (``:34-63``), each with its predictor injected:
+``get_ref_distance`` (the ``*_ref_distance.npy`` cache, else a
+``PanoFusionInvPredictor`` with every pixel free), ``get_ref_normal`` (the
+normal cache, else a ``PanoFusionNormalPredictor`` from 1/sqrt(3)) and
+``refine_geometry`` (a ``PanoGeoRefiner``). ``WildDataset`` (``:66-123``):
+the
 image is read; its geometry comes from the ``*_ref_distance.npy`` /
 ``*_ref_normal.npy`` caches beside it or, when they are missing, is
 bootstrapped by the joint predictor (``joint_predictor(image, ones,
@@ -16,13 +22,59 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from ..core import img_coord_from_hw, img_coord_to_pano_direction
 from ..utils.io import read_image, write_ply
 
 
-class WildDataset:
+class Dataset:
+    def __init__(self):
+        self.image_path = None
+        self.ref_distance_path = None
+        self.ref_normal_path = None
+        self.ref_geometry_path = None
+        self.image = None
+        self.ref_distance = None
+        self.ref_normal = None
+        self.height = 0
+        self.width = 0
+        self.case_name = "wp"
+
+    def get_ref_distance(self, distance_predictor) -> torch.Tensor:
+        """The cached distance map when ``ref_distance_path`` exists (the
+        predictor is then not called), else the fusion predictor's [H, W]
+        with every pixel free, on the predictor's device."""
+        if self.ref_distance_path and os.path.exists(self.ref_distance_path):
+            return torch.from_numpy(np.load(self.ref_distance_path).astype(
+                np.float32))
+        h, w, dev = self.height, self.width, distance_predictor.device
+        dist, _ = distance_predictor(self.image,
+                                     torch.zeros((h, w), device=dev),
+                                     torch.ones((h, w), device=dev))
+        return dist
+
+    def get_ref_normal(self, normal_predictor) -> torch.Tensor:
+        """The cached normal map, else the normal fusion predictor's [H, W,
+        3] from 1/sqrt(3) with every pixel free, on the predictor's
+        device."""
+        if self.ref_normal_path and os.path.exists(self.ref_normal_path):
+            return torch.from_numpy(np.load(self.ref_normal_path).astype(
+                np.float32))
+        h, w, dev = self.height, self.width, normal_predictor.device
+        init = torch.full((h, w, 3), float(1.0 / np.sqrt(3.0)), device=dev)
+        return normal_predictor.inpaint_normal(
+            self.image, init, torch.ones((h, w), device=dev))
+
+    def refine_geometry(self, distance_map, normal_map, refiner):
+        """(distance [H, W, 1], normal [H, W, 3]) of the maps distilled
+        through the sphere field of ``refiner`` (a ``PanoGeoRefiner``)."""
+        return refiner.refine(distance_map, normal_map)
+
+
+class WildDataset(Dataset):
     def __init__(self, conf, joint_predictor=None):
+        super().__init__()
         self.image_path = str(conf["image_path"])
         stem = ".".join(self.image_path.split(".")[:-1])
         self.ref_distance_path = stem + "_ref_distance.npy"

@@ -1,5 +1,5 @@
 from .mlp import (ngp_mlp_init, ngp_mlp_apply_channels, vanilla_mlp_init,
-                  vanilla_mlp_apply)
+                  vanilla_mlp_apply, vanilla_weights)
 from .ngp import (
     NGPFieldConfig, TruncExp, trunc_exp, init_ngp_params, init_geo_params,
     init_app_params, reset_geo, normalize_coords, query_density_coords,
@@ -7,6 +7,6 @@ from .ngp import (
     field_eval_plain,
 )
 from .sphere_field import (
-    SphereFieldConfig, init_sphere_field, sphere_field_distance_and_grad,
-    grads_to_normal,
+    SphereFieldConfig, init_sphere_field, sphere_field_distance,
+    sphere_field_distance_and_grad, grads_to_normal,
 )

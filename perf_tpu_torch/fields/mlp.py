@@ -2,9 +2,9 @@
 
 Counterpart of ``perf_tpu/fields/mlp.py:31-160``. Params are dicts of
 float32 tensors laid out ``[din, dout]`` (``{"w": [...]}`` for the NGP
-MLP, ``{"w": [...], "b": [...]}`` for the VanillaMLP), so a ``perf_tpu``
-param tree loads as it is. The VanillaMLP's weight norm is not ported: the
-joint predictor's sphere field runs without it.
+MLP, ``{"w": [...], "b": [...]}`` for the VanillaMLP, ``{"v": [...], "g":
+[...], "b": [...]}`` for the weight-normed VanillaMLP of the geometry
+refiner), so a ``perf_tpu`` param tree loads as it is.
 """
 
 from __future__ import annotations
@@ -58,12 +58,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def vanilla_mlp_init(generator: torch.Generator, dim_in: int, dim_out: int,
                      n_neurons: int, n_hidden_layers: int,
-                     sphere_init_radius: float = 0.5, device=None) -> dict:
+                     sphere_init_radius: float = 0.5, weight_norm: bool = False,
+                     device=None) -> dict:
     """A sphere-initialised VanillaMLP (the sphere field's; the JAX
     package's other init is unused here): the first layer connects only the
     first 3 inputs (the raw direction), the last starts at bias -radius
     with near-constant positive weights, so the negated output is ~ radius
-    - |x| at init."""
+    - |x| at init. With ``weight_norm`` the weights are reparametrised as
+    w = g * v / ||v||_col with v the drawn weights and g = ||v||_col."""
     dims = [dim_in] + [n_neurons] * n_hidden_layers + [dim_out]
     ws, bs = [], []
     for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
@@ -79,14 +81,26 @@ def vanilla_mlp_init(generator: torch.Generator, dim_in: int, dim_out: int,
             bias = torch.zeros((b,))
         ws.append(w.to(device))
         bs.append(bias.to(device))
+    if weight_norm:
+        return {"v": ws, "g": [torch.linalg.norm(w, dim=0) for w in ws],
+                "b": bs}
     return {"w": ws, "b": bs}
+
+
+def vanilla_weights(params: dict) -> tuple:
+    """(weights, biases); weight-normed weights materialised as
+    g * v / (||v||_col + 1e-12)."""
+    if "v" in params:
+        return ([g * v / (torch.linalg.norm(v, dim=0) + 1e-12)
+                 for v, g in zip(params["v"], params["g"])], params["b"])
+    return params["w"], params["b"]
 
 
 def vanilla_mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Forward of the sphere-initialised VanillaMLP, softplus(100 z) / 100
     between layers; returns the NEGATED network output (the sphere init
     depends on it)."""
-    ws, bs = params["w"], params["b"]
+    ws, bs = vanilla_weights(params)
     h = x
     for w, b in zip(ws[:-1], bs[:-1]):
         h = softplus(100.0 * (h @ w + b)) / 100.0

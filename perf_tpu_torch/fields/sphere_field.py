@@ -1,16 +1,36 @@
 """Sphere distance field: distance to the surface as a function of direction.
 
-Counterpart of ``perf_tpu/fields/sphere_field.py:25-172`` on the joint
-predictor's path: the brick encoding (smoothstep, ``BrickGridConfig.
-sphere_field``) of direction * 0.49 + 0.49 feeds a sphere-initialised
-VanillaMLP, and the distance's gradient with respect to the direction is
-analytic (``grad_mode="analytic"``): the encode returns the features and
-their derivatives in one pass (the ``brick_encode_grad`` kernels), and the
-three directional derivatives of the MLP are propagated forward by hand,
-t' = sigmoid(100 z) * (t W) per hidden layer (JAX's ``jax.jvp``), so an
-outer loss on distance and gradient needs only first-order autograd. The
-hash encoding, the ``fd`` / ``ad`` gradient modes and the refiner's raw
-output head are not ported.
+Counterpart of ``perf_tpu/fields/sphere_field.py:25-172``: an encoding of
+direction * 0.49 + 0.49 feeds a sphere-initialised VanillaMLP (optionally
+weight-normed); the ``joint`` head returns softplus(out + 1), the ``raw``
+head the output itself. Two encodings:
+
+- ``hash`` (the reference's tcnn Smoothstep HashGrid, JAX's default):
+  ``HashGridConfig.sphere_field``, through the ``hash_encode`` kernels;
+- ``brick``: ``BrickGridConfig.sphere_field``, through the
+  ``brick_encode_grad`` kernels.
+
+and three modes for the distance's gradient with respect to the direction:
+
+- ``ad`` (hash only, JAX's default): JAX takes ``jax.vjp`` of the distance,
+  which an outer training loss differentiates again (second order). The
+  port computes the same gradient forward: ``hash_encode_grad`` returns the
+  features and their derivatives in one pass, and the three directional
+  derivatives of the MLP are propagated by hand (``_head_with_jvp``). This
+  is forward mode for JAX's reverse mode: the same function, with float
+  sums in another order; an outer loss then needs only first-order
+  autograd (the table gradient of features and derivatives, the MLP's
+  through the jvp), no double backward;
+- ``analytic`` (brick only): the same forward propagation on the brick
+  encode's derivatives;
+- ``fd``: central differences with eps = 1 / ``fine_res``: the distance at
+  the direction and at the six displaced ones, all seven in one encode
+  (``HashEncode`` on the hash grid, the brick encode's features on the
+  brick grid), first order under an outer loss.
+
+JAX asserts against analytic on the hash grid; ad on the brick grid would
+need a second-order brick encode, which neither package has. Both are
+refused when the config is made.
 """
 
 from __future__ import annotations
@@ -20,7 +40,13 @@ import dataclasses
 import torch
 
 from ..kernels.brickgrid import BrickGridConfig, brick_encode_stacked_grad
-from .mlp import softplus, vanilla_mlp_init
+from ..kernels.hashgrid import (HashGridConfig, hash_encode, hash_encode_grad,
+                                init_hash_table)
+from .mlp import softplus, vanilla_mlp_apply, vanilla_mlp_init, vanilla_weights
+
+ENCODINGS = ("hash", "brick")
+GRAD_MODES = ("ad", "fd", "analytic")
+OUTPUTS = ("joint", "raw")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,34 +58,69 @@ class SphereFieldConfig:
     n_neurons: int = 64
     n_hidden_layers: int = 2
     weight_norm: bool = False
-    encoding: str = "brick"
-    grad_mode: str = "analytic"
+    # 'joint': softplus(out + 1) (the joint predictor); 'raw': the output
+    # itself (the geometry refiner)
+    output: str = "joint"
+    encoding: str = "hash"
+    grad_mode: str = "ad"
 
     def __post_init__(self):
-        if self.encoding != "brick" or self.grad_mode != "analytic":
-            raise ValueError(
-                f"sphere field encoding={self.encoding!r} grad_mode="
-                f"{self.grad_mode!r}: only brick + analytic is ported")
-        if self.weight_norm:
-            raise ValueError("sphere field weight_norm is not ported")
+        for name, value, allowed in (("encoding", self.encoding, ENCODINGS),
+                                     ("grad_mode", self.grad_mode, GRAD_MODES),
+                                     ("output", self.output, OUTPUTS)):
+            if value not in allowed:
+                raise ValueError(f"sphere field {name}={value!r}: one of "
+                                 f"{allowed}")
+        if self.grad_mode == "analytic" and self.encoding != "brick":
+            raise ValueError("sphere field grad_mode='analytic' needs "
+                             "encoding='brick' (as JAX asserts)")
+        if self.grad_mode == "ad" and self.encoding != "hash":
+            raise ValueError("sphere field grad_mode='ad' needs "
+                             "encoding='hash': the brick encode is "
+                             "differentiable once (use fd or analytic)")
 
     @property
-    def grid(self) -> BrickGridConfig:
-        return BrickGridConfig.sphere_field(
+    def grid(self):
+        if self.encoding == "brick":
+            return BrickGridConfig.sphere_field(
+                fine_res=self.fine_res, n_levels=self.n_levels,
+                log2_bricks=self.log2_table_size - 6, base_res=self.base_res)
+        return HashGridConfig.sphere_field(
             fine_res=self.fine_res, n_levels=self.n_levels,
-            log2_bricks=self.log2_table_size - 6, base_res=self.base_res)
+            log2_table_size=self.log2_table_size, base_res=self.base_res)
 
 
 def init_sphere_field(generator: torch.Generator, cfg: SphereFieldConfig,
                       device=None) -> dict:
-    """Uniform(-1e-4, 1e-4) brick table and a sphere-initialised MLP."""
+    """Uniform(-1e-4, 1e-4) table (brick [L, rows, 128] or hash [L, 2, T])
+    and a sphere-initialised MLP."""
     g = cfg.grid
-    table = torch.rand((g.n_levels, g.n_bricks, g.n_features * 64),
-                       generator=generator) * 2e-4 - 1e-4
-    return {"table": table.to(device),
+    if cfg.encoding == "brick":
+        table = (torch.rand((g.n_levels, g.n_bricks, g.n_features * 64),
+                            generator=generator) * 2e-4 - 1e-4).to(device)
+    else:
+        table = init_hash_table(generator, g, device)
+    return {"table": table,
             "mlp": vanilla_mlp_init(generator, cfg.n_levels * 2 + 3, 1,
                                     cfg.n_neurons, cfg.n_hidden_layers,
+                                    weight_norm=cfg.weight_norm,
                                     device=device)}
+
+
+def sphere_field_distance(params: dict, dirs: torch.Tensor,
+                          cfg: SphereFieldConfig) -> torch.Tensor:
+    """Distance at unit directions [..., 3] -> [...]."""
+    shape = dirs.shape[:-1]
+    d = dirs.reshape(-1, 3)
+    if cfg.encoding == "brick":
+        feats = brick_encode_stacked_grad(params["table"], d * 0.49 + 0.49,
+                                          cfg.grid)[0]
+    else:
+        feats = hash_encode(params["table"], d * 0.49 + 0.49, cfg.grid)
+    out = vanilla_mlp_apply(params["mlp"], torch.cat([d, feats], -1))[..., 0]
+    if cfg.output == "joint":
+        out = softplus(out + 1.0)
+    return out.reshape(shape)
 
 
 def _jvp_softplus(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -68,18 +129,15 @@ def _jvp_softplus(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return torch.exp(x - out)
 
 
-def sphere_field_distance_and_grad(params: dict, dirs: torch.Tensor,
-                                   cfg: SphereFieldConfig):
-    """(distance [...], d distance / d direction [..., 3]) at unit
-    directions [..., 3]."""
-    shape = dirs.shape[:-1]
-    d = dirs.reshape(-1, 3)
-    feats, dfeats = brick_encode_stacked_grad(params["table"], d * 0.49 + 0.49,
-                                              cfg.grid)
-    ws, bs = params["mlp"]["w"], params["mlp"]["b"]
+def _head_with_jvp(mlp: dict, d: torch.Tensor, feats: torch.Tensor,
+                   dfeats: torch.Tensor, cfg: SphereFieldConfig):
+    """(distance [N], its derivative along each axis [3, N]) of the MLP head
+    at input (d, feats): the tangent of axis a is e_a on the raw direction
+    and 0.49 * dfeats[:, a] on the features (d scaled / d direction =
+    0.49), carried through each hidden layer as t' = softplus'(100 z) *
+    (t W) (JAX's ``jax.jvp``)."""
+    ws, bs = vanilla_weights(mlp)
     h = torch.cat([d, feats], dim=-1)
-    # the three tangents: e_a on the raw direction, 0.49 * dfeats[:, a] on
-    # the features (d scaled / d direction = 0.49)
     eye = torch.eye(3, dtype=d.dtype, device=d.device)
     t = torch.cat([eye[:, None, :].expand(3, d.shape[0], 3),
                    dfeats.permute(1, 0, 2) * 0.49], dim=-1)      # [3, N, in]
@@ -88,10 +146,41 @@ def sphere_field_distance_and_grad(params: dict, dirs: torch.Tensor,
         sp = softplus(z)
         t = (_jvp_softplus(z, sp) * (100.0 * (t @ w))) / 100.0
         h = sp / 100.0
-    # the joint predictor's head: softplus(out + 1) of the negated output
-    out = -(h @ ws[-1] + bs[-1])[..., 0] + 1.0
-    dist = softplus(out)
-    t_out = -(t @ ws[-1])[..., 0] * _jvp_softplus(out, dist)      # [3, N]
+    # the VanillaMLP's output is negated
+    out = -(h @ ws[-1] + bs[-1])[..., 0]
+    t_out = -(t @ ws[-1])[..., 0]                                # [3, N]
+    if cfg.output == "joint":
+        out = out + 1.0
+        dist = softplus(out)
+        return dist, t_out * _jvp_softplus(out, dist)
+    return out, t_out
+
+
+def sphere_field_distance_and_grad(params: dict, dirs: torch.Tensor,
+                                   cfg: SphereFieldConfig):
+    """(distance [...], d distance / d direction [..., 3]) at unit
+    directions [..., 3]."""
+    shape = dirs.shape[:-1]
+    if cfg.grad_mode == "fd":
+        eps = 1.0 / cfg.fine_res
+        d = dirs.reshape(-1, 3)
+        e = torch.zeros((3, 3), dtype=d.dtype, device=d.device)
+        e[range(3), range(3)] = eps
+        # the direction and, per axis, +eps and -eps: one encode of 7 N
+        shifted = torch.stack([d] + [d + s * e[a] for a in range(3)
+                                     for s in (1.0, -1.0)])
+        dist = sphere_field_distance(params, shifted, cfg)
+        gs = [(dist[1 + 2 * a] - dist[2 + 2 * a]) / (2.0 * eps)
+              for a in range(3)]
+        return dist[0].reshape(shape), torch.stack(gs, -1).reshape(*shape, 3)
+    d = dirs.reshape(-1, 3)
+    if cfg.grad_mode == "analytic":
+        feats, dfeats = brick_encode_stacked_grad(params["table"],
+                                                  d * 0.49 + 0.49, cfg.grid)
+    else:
+        feats, dfeats = hash_encode_grad(params["table"], d * 0.49 + 0.49,
+                                         cfg.grid)
+    dist, t_out = _head_with_jvp(params["mlp"], d, feats, dfeats, cfg)
     return dist.reshape(shape), t_out.t().reshape(*shape, 3)
 
 

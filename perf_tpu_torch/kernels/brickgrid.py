@@ -23,14 +23,14 @@ all levels at once with the in-cell derivatives of the features
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import ClassVar
 
 import numpy as np
 import torch
 
 from . import cuda
-from .hashgrid import coarse_coords, kernel_plan, level_plan, lerp_upsample
+from .hashgrid import (coarse_coords, kernel_plan, level_plan, level_table,
+                       lerp_upsample)
 
 PRIMES = (1, 2654435761, 805459861)
 BRICK = 3          # voxels per brick edge
@@ -375,15 +375,6 @@ def brick_encode_grad_grad_plain(table_shape, x: torch.Tensor,
     gt.view(-1, nf).index_add_(0, idx.reshape(-1),
                                cot.to(torch.bfloat16).float().reshape(-1, nf))
     return gt
-
-
-@functools.lru_cache(maxsize=16)
-def level_table(cfg: BrickGridConfig, device: torch.device) -> torch.Tensor:
-    """[L, 3] int32 (level_res, bricks per axis, hashed) on ``device`` for
-    the kernels that locate points at every level, made once per grid."""
-    rows = [(cfg.level_res(l), cfg.level_bricks(l), int(cfg.level_hashed(l)))
-            for l in range(cfg.n_levels)]
-    return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
 def _check_grad_args(table_shape, x: torch.Tensor, cfg: BrickGridConfig):

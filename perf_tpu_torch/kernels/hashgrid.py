@@ -8,18 +8,30 @@ it), the linear-interpolation encode in its point form
 (``hash_encode_coords`` / ``hash_encode``) and ray form with per-level
 strides (``hash_encode_ray``), ``level_strides`` and ``_lerp_upsample``.
 Tables are ``[L, F, T]`` float32 (feature-major), the JAX layout, so a
-checkpoint of either package loads in the other.
+checkpoint of either package loads in the other. Interpolation is linear
+(the NGP field's) or smoothstep, w = f * f * (3 - 2 f) (the sphere field's,
+``HashGridConfig.sphere_field``).
 
 Both forms run through ``HashEncode``: the encode of every level's points
 (the level plan of ``level_plan``: a level of stride k reads samples 0, k,
 ..., S-k and S-1 of each ray; the point form is rays of one sample) with
 the table gradient. CUDA tensors launch the ``hash_encode`` kernels
-(``csrc/hash_encode.cu``), forward and backward; CPU tensors take the plain
+(``csrc/hash_encode.cu``; the smoothstep variant counts as
+``hash_encode_smooth``), forward and backward; CPU tensors take the plain
 versions here, which keep JAX's order of corner offsets, weight products
 and sums. The lerp back to all S samples runs around the kernel in
-PyTorch. Only linear interpolation is ported (the NGP field's): the
-smoothstep encode with its position gradient (the sphere field's hash
-encoding) is refused.
+PyTorch. ``HashEncode`` gives no position gradient.
+
+The sphere field's ``ad`` gradients take ``hash_encode_grad``: the point
+form's features and their derivatives with respect to the position, dfeats
+[N, 3, L*F], as JAX's autodiff of ``hash_encode`` gives them (the clip's
+derivative is 1 inside, 0.5 at 0 and at 1, 0 outside; floor and the
+clipped lower corner contribute nothing), with the table gradient of both
+(``HashEncodeGrad``; the ``hash_encode_grad`` kernels of
+``csrc/hash_encode_grad.cu`` on the card, smoothstep only). Both kernel
+sources locate a point's cell, weights and rows through one header,
+``csrc/hash_cell.cuh``, as the plain versions here share ``_axis_terms``
+and ``_level_corners``.
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ class HashGridConfig:
     log2_table_size: int = 18
     base_res: int = 16
     per_level_scale: float = 1.4472692012786865
-    interpolation: str = "linear"  # only linear is ported
+    interpolation: str = "linear"  # or "smoothstep"
     # serving and the prune run the hash encode kernel, then the plain heads
     fused_field: ClassVar[bool] = False
 
@@ -61,6 +73,17 @@ class HashGridConfig:
     @property
     def table_shape(self) -> tuple:
         return (self.n_levels, self.n_features, self.table_size)
+
+    @classmethod
+    def sphere_field(cls, fine_res: int = 2048, n_levels: int = 16,
+                     log2_table_size: int = 19, base_res: int = 16):
+        """The sphere distance field's grid: the growth solved from
+        ``fine_res`` in float64 (as the JAX package), smoothstep
+        interpolation."""
+        scale = float(np.exp(np.log(fine_res / base_res) / (n_levels - 1)))
+        return cls(n_levels=n_levels, n_features=2,
+                   log2_table_size=log2_table_size, base_res=base_res,
+                   per_level_scale=scale, interpolation="smoothstep")
 
     def level_res(self, level: int) -> int:
         # float64 as the JAX package: the finest default level is
@@ -110,29 +133,57 @@ def corner_index(cx, cy, cz, res: int, table_size: int) -> torch.Tensor:
     return h & (table_size - 1)
 
 
-def _check_linear(cfg: HashGridConfig):
-    if cfg.interpolation != "linear":
-        raise ValueError("the hash encode takes only linear interpolation "
-                         f"(the NGP field's), got {cfg.interpolation!r}")
+INTERPOLATIONS = ("linear", "smoothstep")
 
 
-def _axis_terms(x: torch.Tensor, res: int):
-    """Per axis: (lower corner, int64; linear weight of the upper one)."""
+def _smooth(cfg: HashGridConfig) -> bool:
+    if cfg.interpolation not in INTERPOLATIONS:
+        raise ValueError(f"hash grid interpolation {cfg.interpolation!r}: "
+                         f"only {INTERPOLATIONS} are ported")
+    return cfg.interpolation == "smoothstep"
+
+
+def _axis_terms(x: torch.Tensor, res: int, smooth: bool, grad: bool = False):
+    """Per axis: (lower corner, int64; weight of the upper one), the
+    smoothstep weight as JAX writes it, (f * f) * (3 - 2 f). ``grad`` adds
+    d weight / d x with JAX's forward-mode arithmetic: the clip's
+    derivative 1 inside, 0.5 at 0 and at 1 (``maximum`` / ``minimum`` split
+    a tie), 0 outside; d f = that times res (floor and the clipped lower
+    corner have none); smoothstep d w = (df * f + f * df) * (3 - 2 f) +
+    (f * f) * -(2 df)."""
     pos = torch.clamp(x, 0.0, 1.0) * res
     c0f = torch.clamp(torch.floor(pos), 0, res - 1)
-    return c0f.to(torch.int64), pos - c0f
+    frac = pos - c0f
+    w = frac * frac * (3.0 - 2.0 * frac) if smooth else frac
+    if not grad:
+        return c0f.to(torch.int64), w
+    dclip = torch.where((x > 0.0) & (x < 1.0), 1.0,
+                        torch.where((x == 0.0) | (x == 1.0), 0.5, 0.0))
+    dfrac = dclip * res
+    dw = ((dfrac * frac + frac * dfrac) * (3.0 - 2.0 * frac)
+          + (frac * frac) * -(2.0 * dfrac)) if smooth else dfrac
+    return c0f.to(torch.int64), w, dw
 
 
-def _level_corners(x, y, z, res: int, table_size: int):
+def _level_corners(x, y, z, res: int, table_size: int, smooth: bool,
+                   grad: bool = False):
     """The 8 corners of each point in JAX's order: [(row, weight)], the
-    weight ((wx * wy) * wz) with 1 - w for a lower corner."""
-    (cx, wx), (cy, wy), (cz, wz) = (_axis_terms(a, res) for a in (x, y, z))
+    weight (A * B) * C with A = wx for an upper corner and 1 - wx for a
+    lower one. ``grad`` adds its derivatives ((dA * B) * C, (A * dB) * C,
+    (A * B) * dC), dA = -dwx for a lower corner: [(row, weight, (d weight
+    / dx, / dy, / dz))]."""
+    terms = [_axis_terms(a, res, smooth, grad) for a in (x, y, z)]
     out = []
-    for ox, oy, oz in OFFSETS:
-        idx = corner_index(cx + ox, cy + oy, cz + oz, res, table_size)
-        weight = ((wx if ox else 1.0 - wx) * (wy if oy else 1.0 - wy)
-                  * (wz if oz else 1.0 - wz))
-        out.append((idx, weight))
+    for offs in OFFSETS:
+        idx = corner_index(*(t[0] + o for t, o in zip(terms, offs)), res,
+                           table_size)
+        a, b, c = (t[1] if o else 1.0 - t[1] for t, o in zip(terms, offs))
+        ab = a * b
+        if not grad:
+            out.append((idx, ab * c))
+            continue
+        da, db, dc = (t[2] if o else -t[2] for t, o in zip(terms, offs))
+        out.append((idx, ab * c, ((da * b) * c, (a * db) * c, ab * dc)))
     return out
 
 
@@ -140,9 +191,9 @@ def encode_level_coords(table_lvl: torch.Tensor, res: int, x, y, z,
                         cfg: HashGridConfig) -> list:
     """One level at coords in [0, 1] (three same-shape tensors); table_lvl
     [F, T] -> F tensors shaped like x (``encode_level_coords``)."""
-    _check_linear(cfg)
+    smooth = _smooth(cfg)
     accs = [None] * cfg.n_features
-    for idx, weight in _level_corners(x, y, z, res, cfg.table_size):
+    for idx, weight in _level_corners(x, y, z, res, cfg.table_size, smooth):
         for f in range(cfg.n_features):
             term = table_lvl[f][idx] * weight
             accs[f] = term if accs[f] is None else accs[f] + term
@@ -248,7 +299,7 @@ def hash_points_grad_plain(table_shape, nx, ny, nz, cfg: HashGridConfig,
     """Table gradient [L, F, T] float32 from the points' cotangents [points,
     F]: each corner's weight * cotangent scatter-added in float32 (JAX's
     transpose of the gather; no bf16 rounding)."""
-    _check_linear(cfg)
+    smooth = _smooth(cfg)
     n, s = nx.shape
     nf = cfg.n_features
     plan, _ = level_plan(cfg, strides, n, s)
@@ -256,7 +307,8 @@ def hash_points_grad_plain(table_shape, nx, ny, nz, cfg: HashGridConfig,
     for lvl, (res, _, _, k, npts, first) in enumerate(plan):
         g = grad[first:first + n * npts].reshape(n, npts, nf)
         xs, ys, zs = (coarse_coords(a, k) for a in (nx, ny, nz))
-        for idx, weight in _level_corners(xs, ys, zs, res, cfg.table_size):
+        for idx, weight in _level_corners(xs, ys, zs, res, cfg.table_size,
+                                          smooth):
             for f in range(nf):
                 gt[lvl, f].index_add_(0, idx.reshape(-1),
                                       (g[..., f] * weight).reshape(-1))
@@ -264,7 +316,7 @@ def hash_points_grad_plain(table_shape, nx, ny, nz, cfg: HashGridConfig,
 
 
 def _check_kernel_args(cfg: HashGridConfig, table_shape, coords):
-    _check_linear(cfg)
+    _smooth(cfg)
     if tuple(table_shape) != (cfg.n_levels, 2, cfg.table_size):
         raise ValueError("hash_encode kernel takes a [L, 2, T] table (2 "
                          f"features), got {tuple(table_shape)}")
@@ -281,7 +333,7 @@ def hash_points_cuda(table: torch.Tensor, nx, ny, nz, cfg: HashGridConfig,
     table = table.contiguous()
     cuda.check(table, "table", torch.float32, None, dev)
     out = torch.empty((total, 2), dtype=torch.float32, device=dev)
-    _ENCODE.launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), nx.shape[1],
+    _ENCODE[_smooth(cfg)].launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), nx.shape[1],
                    table.data_ptr(), cfg.table_size, levels.data_ptr(),
                    cfg.n_levels, total, out.data_ptr())
     return out
@@ -297,19 +349,22 @@ def hash_points_grad_cuda(table_shape, nx, ny, nz, cfg: HashGridConfig,
         grad = grad.clone()
     cuda.check(grad, "grad", torch.float32, (total, 2), dev)
     gt = torch.zeros(table_shape, dtype=torch.float32, device=dev)
-    _ENCODE_BWD.launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
+    _ENCODE_BWD[_smooth(cfg)].launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
                        nx.shape[1], cfg.table_size, levels.data_ptr(),
                        cfg.n_levels, total, grad.data_ptr(), gt.data_ptr())
     return gt
 
 
 _ARGS = [cuda.P, cuda.P, cuda.P, cuda.I32]
-_ENCODE = cuda.register(cuda.CudaKernel(
-    "hash_encode", "hash_encode.cu", "hash_encode_fwd_launch",
+# indexed by smoothstep: the linear entry points, then the smoothstep ones
+_ENCODE = tuple(cuda.register(cuda.CudaKernel(
+    f"hash_encode{tag}", "hash_encode.cu", f"hash_encode{tag}_fwd_launch",
     _ARGS + [cuda.P, cuda.I32, cuda.P, cuda.I32, cuda.I64, cuda.P]))
-_ENCODE_BWD = cuda.register(cuda.CudaKernel(
-    "hash_encode_bwd", "hash_encode.cu", "hash_encode_bwd_launch",
+    for tag in ("", "_smooth"))
+_ENCODE_BWD = tuple(cuda.register(cuda.CudaKernel(
+    f"hash_encode{tag}_bwd", "hash_encode.cu", f"hash_encode{tag}_bwd_launch",
     _ARGS + [cuda.I32, cuda.P, cuda.I32, cuda.I64, cuda.P, cuda.P]))
+    for tag in ("", "_smooth"))
 
 
 class HashEncode(torch.autograd.Function):
@@ -320,7 +375,7 @@ class HashEncode(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, nx, ny, nz, cfg, strides):
-        _check_linear(cfg)
+        _smooth(cfg)
         ctx.save_for_backward(nx, ny, nz)
         ctx.cfg, ctx.strides, ctx.table_shape = cfg, strides, table.shape
         if nx.is_cuda:
@@ -340,7 +395,8 @@ class HashEncode(torch.autograd.Function):
 def _encode_points(table, nx, ny, nz, cfg, strides) -> torch.Tensor:
     if torch.is_grad_enabled() and any(a.requires_grad for a in (nx, ny, nz)):
         raise ValueError("the hash encode gives the table gradient only; "
-                         "detach the coordinates")
+                         "detach the coordinates (hash_encode_grad gives "
+                         "the position gradient)")
     nx, ny, nz = (a.contiguous() for a in (nx, ny, nz))
     return HashEncode.apply(table, nx, ny, nz, cfg, tuple(strides))
 
@@ -375,3 +431,154 @@ def hash_encode(table: torch.Tensor, x: torch.Tensor,
                 cfg: HashGridConfig) -> torch.Tensor:
     """Positions x [..., 3] in [0, 1]^3 -> features [..., L*F]."""
     return hash_encode_coords(table, x[..., 0], x[..., 1], x[..., 2], cfg)
+
+
+# -- the point form with the position gradient (the sphere field's ``ad``) ------
+
+def hash_encode_grad_plain(table: torch.Tensor, x: torch.Tensor,
+                           cfg: HashGridConfig):
+    """Points x [N, 3] in [0, 1] -> (feats [N, L*F], dfeats = d feats / d x
+    [N, 3, L*F]), level-major; each feature and derivative sums its 8
+    corners' table value x weight in JAX's order."""
+    smooth = _smooth(cfg)
+    feats, dfeats = [], []
+    for lvl in range(cfg.n_levels):
+        for f in range(cfg.n_features):
+            acc, dacc = None, [None] * 3
+            for idx, w, dws in _level_corners(
+                    x[:, 0], x[:, 1], x[:, 2], cfg.level_res(lvl),
+                    cfg.table_size, smooth, grad=True):
+                v = table[lvl, f][idx]
+                acc = v * w if acc is None else acc + v * w
+                dacc = [v * d if s_ is None else s_ + v * d
+                        for s_, d in zip(dacc, dws)]
+            feats.append(acc)
+            dfeats.append(torch.stack(dacc, -1))
+    return torch.stack(feats, -1), torch.stack(dfeats, -1)
+
+
+def hash_encode_grad_grad_plain(table_shape, x: torch.Tensor,
+                                cfg: HashGridConfig, g_feats: torch.Tensor,
+                                g_dfeats: torch.Tensor) -> torch.Tensor:
+    """Table gradient [L, F, T] float32 of ``hash_encode_grad`` from the
+    cotangents of both outputs: per corner and feature ((w * gf + dwx * gx)
+    + dwy * gy) + dwz * gz, scatter-added in float32."""
+    smooth = _smooth(cfg)
+    gt = torch.zeros(table_shape, dtype=torch.float32, device=x.device)
+    for lvl in range(cfg.n_levels):
+        for idx, w, dws in _level_corners(
+                x[:, 0], x[:, 1], x[:, 2], cfg.level_res(lvl),
+                cfg.table_size, smooth, grad=True):
+            for f in range(cfg.n_features):
+                col = lvl * cfg.n_features + f
+                c = w * g_feats[:, col]
+                for a in range(3):
+                    c = c + dws[a] * g_dfeats[:, a, col]
+                gt[lvl, f].scatter_add_(0, idx, c)
+    return gt
+
+
+def _check_grad_args(cfg: HashGridConfig, table_shape, x: torch.Tensor):
+    if not _smooth(cfg):
+        raise ValueError("the hash_encode_grad kernels are built for "
+                         "smoothstep interpolation (the sphere field's) only")
+    if tuple(table_shape) != (cfg.n_levels, 2, cfg.table_size):
+        raise ValueError("hash_encode_grad kernel takes a [L, 2, T] table (2 "
+                         f"features), got {tuple(table_shape)}")
+    cuda.check(x, "x", torch.float32, (None, 3))
+    if x.shape[0] * cfg.n_levels >= 2 ** 31:
+        raise ValueError("too many points: the kernel indexes (point, level) "
+                         "in int32")
+
+
+def level_table(cfg, device) -> torch.Tensor:
+    """[L, 3] int32 ``level_lookup`` rows (res, lookup size, hashed) of a
+    brick or hash grid on ``device``, for the kernels that locate points at
+    every level; made once per grid."""
+    return plan_tensor(tuple(cfg.level_lookup(l) for l in range(cfg.n_levels)),
+                       device)
+
+
+def hash_encode_grad_cuda(table: torch.Tensor, x: torch.Tensor,
+                          cfg: HashGridConfig):
+    _check_grad_args(cfg, table.shape, x)
+    dev, n, width = x.device, x.shape[0], cfg.out_dim
+    table = table.contiguous()
+    cuda.check(table, "table", torch.float32, None, dev)
+    feats = torch.empty((n, width), dtype=torch.float32, device=dev)
+    dfeats = torch.empty((n, 3, width), dtype=torch.float32, device=dev)
+    _ENCODE_GRAD.launch(x.data_ptr(), n, table.data_ptr(), cfg.table_size,
+                        level_table(cfg, dev).data_ptr(),
+                        cfg.n_levels, feats.data_ptr(), dfeats.data_ptr())
+    return feats, dfeats
+
+
+def hash_encode_grad_grad_cuda(table_shape, x: torch.Tensor,
+                               cfg: HashGridConfig, g_feats: torch.Tensor,
+                               g_dfeats: torch.Tensor) -> torch.Tensor:
+    _check_grad_args(cfg, table_shape, x)
+    dev, n, width = x.device, x.shape[0], cfg.out_dim
+    # the kernel reads float2
+    g_feats, g_dfeats = (g if g.data_ptr() % 8 == 0 else g.clone()
+                         for g in (g_feats.contiguous(), g_dfeats.contiguous()))
+    cuda.check(g_feats, "g_feats", torch.float32, (n, width), dev)
+    cuda.check(g_dfeats, "g_dfeats", torch.float32, (n, 3, width), dev)
+    gt = torch.zeros(table_shape, dtype=torch.float32, device=dev)
+    _ENCODE_GRAD_BWD.launch(x.data_ptr(), n, cfg.table_size,
+                            level_table(cfg, dev).data_ptr(), cfg.n_levels,
+                            g_feats.data_ptr(), g_dfeats.data_ptr(),
+                            gt.data_ptr())
+    return gt
+
+
+_ENCODE_GRAD = cuda.register(cuda.CudaKernel(
+    "hash_encode_grad", "hash_encode_grad.cu", "hash_encode_grad_fwd_launch",
+    [cuda.P, cuda.I64, cuda.P, cuda.I32, cuda.P, cuda.I32, cuda.P, cuda.P]))
+_ENCODE_GRAD_BWD = cuda.register(cuda.CudaKernel(
+    "hash_encode_grad_bwd", "hash_encode_grad.cu",
+    "hash_encode_grad_bwd_launch",
+    [cuda.P, cuda.I64, cuda.I32, cuda.P, cuda.I32, cuda.P, cuda.P, cuda.P]))
+
+
+class HashEncodeGrad(torch.autograd.Function):
+    """(feats, dfeats) of ``hash_encode_grad`` with the table gradient of
+    both (first order; the points get none). CUDA tensors launch the
+    kernels (smoothstep only), CPU tensors take the plain versions (linear
+    or smoothstep)."""
+
+    @staticmethod
+    def forward(ctx, table, x, cfg):
+        ctx.save_for_backward(x)
+        ctx.cfg, ctx.table_shape = cfg, tuple(table.shape)
+        if x.is_cuda:
+            return hash_encode_grad_cuda(table, x, cfg)
+        if x.device.type != "cpu":
+            raise ValueError(f"hash_encode_grad: unsupported device {x.device}")
+        return hash_encode_grad_plain(table, x, cfg)
+
+    @staticmethod
+    def backward(ctx, g_feats, g_dfeats):
+        (x,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        fn = (hash_encode_grad_grad_cuda if x.is_cuda
+              else hash_encode_grad_grad_plain)
+        return fn(ctx.table_shape, x, ctx.cfg, g_feats, g_dfeats), None, None
+
+
+def hash_encode_grad(table: torch.Tensor, x: torch.Tensor,
+                     cfg: HashGridConfig):
+    """Positions x [..., 3] in [0, 1]^3 -> (feats [..., L*F], d feats / d x
+    [..., 3, L*F]), differentiable in the table (the features' and the
+    derivatives' cotangents both reach it). The derivatives are computed
+    forward, so the positions get no gradient: coordinates that require
+    one are refused."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("hash_encode_grad gives the table gradient only "
+                         "(d feats / d x comes as its second output, not "
+                         "through autograd); detach the coordinates")
+    shape = x.shape[:-1]
+    feats, dfeats = HashEncodeGrad.apply(
+        table, x.reshape(-1, 3).contiguous(), cfg)
+    return (feats.reshape(*shape, cfg.out_dim),
+            dfeats.reshape(*shape, 3, cfg.out_dim))

@@ -11,7 +11,7 @@ distillation, then read back full-resolution pano distance and normals.
 3. Distillation, two phases of ``iters_per_phase`` steps: smooth-L1
    distance loss against the scaled (and, in the second phase, locally
    biased) prior, the normal-consistency terms through the field's
-   analytic direction gradients, the scale regulariser, TV on the local
+   direction gradients, the scale regulariser, TV on the local
    bias maps (second phase), and a progress-ramped anchor to the known
    reference distance where ``mask`` is 0. Three Adam groups (global
    scale, the sphere field, the local bias maps, the last only in the
@@ -22,7 +22,12 @@ distillation, then read back full-resolution pano distance and normals.
 
 Every view resample and the anchor lookups go through ``bilinear_sample``
 (the ``bilinear`` kernels on the card; the local bias maps train through
-its backward), the field through the ``brick_encode_grad`` kernels.
+its backward). The field is JAX's flagship default, brick + ``analytic``
+(the ``brick_encode_grad`` kernels), or what ``field`` selects: hash +
+``ad`` (the published PeRF's field; the ``hash_encode_grad`` kernels) or
+``fd`` (seven point encodes a step). ``scan_chunk`` is read and has no
+effect (the port steps one at a time), but must divide
+``iters_per_phase``, as JAX asserts.
 
 Randomness comes from a ``draws`` object: ``sphere_init(cfg, device)``,
 ``step(n_views, batch)`` -> (coords [V, B, 2] uniform, ortho [V, B, 3]
@@ -84,7 +89,18 @@ class JointPredictorConfig:
     init_lr_local: float = 1e-1  # local bias maps
     lr_alpha: float = 1e-2
     normal_bias_res: int = 128
-    field: SphereFieldConfig = SphereFieldConfig(fine_res=2048)
+    scan_chunk: int = 1
+    # JAX's flagship: the brick encoding with analytic first-order
+    # gradients; the reference-parity hash + 'ad' field is selected with
+    # priors.joint.field.{encoding,grad_mode}
+    field: SphereFieldConfig = SphereFieldConfig(
+        fine_res=2048, encoding="brick", grad_mode="analytic")
+
+    def __post_init__(self):
+        if self.scan_chunk < 1 or self.iters_per_phase % self.scan_chunk:
+            raise ValueError(f"priors.joint.scan_chunk={self.scan_chunk} must "
+                             "divide iters_per_phase="
+                             f"{self.iters_per_phase} (JAX asserts it)")
 
 
 class TorchDraws:
@@ -106,12 +122,42 @@ class TorchDraws:
                             device=self.device)
         return coords, ortho
 
+    def directions(self, batch: int):
+        """The geometry refiner's per-step draws: directions before
+        normalising and the tangent draw, [batch, 3] each."""
+        return self.normal((batch, 3)), self.normal((batch, 3))
+
     def normal(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.dev, device=self.device)
 
 
 def _sp_leaves(sp: dict) -> list:
-    return [sp["table"], *sp["mlp"]["w"], *sp["mlp"]["b"]]
+    """The sphere field's tensors: the table, then the MLP's weights (or
+    weight-norm directions and gains) and biases."""
+    keys = ("v", "g", "b") if "v" in sp["mlp"] else ("w", "b")
+    return [sp["table"], *(t for k in keys for t in sp["mlp"][k])]
+
+
+def field_readback(sp: dict, cfg: SphereFieldConfig, h: int, w: int, device,
+                   draws):
+    """Distance [h, w, 1] and normals [h, w, 3] of a sphere field at every
+    pixel, in chunks of 2^16 directions (each direction's result is its
+    own, so the last chunk is not padded as JAX pads it); the normals'
+    tangent basis from ``draws.normal``."""
+    pano_dirs = img_coord_to_pano_direction(img_coord_from_hw(
+        h, w, device=device))
+    flat = pano_dirs.reshape(-1, 3)
+    chunk = 1 << 16
+    dists, grads = [], []
+    with torch.no_grad():
+        for s in range(0, flat.shape[0], chunk):
+            dd, gg = sphere_field_distance_and_grad(sp, flat[s:s + chunk], cfg)
+            dists.append(dd)
+            grads.append(gg)
+    dist = torch.cat(dists).reshape(h, w, 1)
+    grad = torch.cat(grads).reshape(h, w, 3)
+    normal = grads_to_normal(pano_dirs, grad, draws.normal((h, w, 3)))
+    return dist, normal
 
 
 class PanoJointPredictor:
@@ -205,32 +251,10 @@ class PanoJointPredictor:
 
         with phase_timer(self.writer, "joint_readback", n_items=h * w,
                          item_name="px"):
-            dist, normal = self.readback(params["sp"], h, w)
+            dist, normal = field_readback(params["sp"], cfg.field, h, w, dev,
+                                          self.draws)
             float(dist[0, 0, 0])
         return dist, normal
-
-    def readback(self, sp: dict, h: int, w: int):
-        """Distance [h, w, 1] and normals [h, w, 3] of the field at every
-        pixel, in chunks of 2^16 directions (each direction's result is its
-        own, so the last chunk is not padded as JAX pads it)."""
-        dev = self.device
-        pano_dirs = img_coord_to_pano_direction(img_coord_from_hw(
-            h, w, device=dev))
-        flat = pano_dirs.reshape(-1, 3)
-        chunk = 1 << 16
-        dists, grads = [], []
-        with torch.no_grad():
-            for s in range(0, flat.shape[0], chunk):
-                dd, gg = sphere_field_distance_and_grad(sp, flat[s:s + chunk],
-                                                        self.cfg.field)
-                dists.append(dd)
-                grads.append(gg)
-        dist = torch.cat(dists).reshape(h, w, 1)
-        grad = torch.cat(grads).reshape(h, w, 3)
-        normal = grads_to_normal(pano_dirs, grad,
-                                 self.draws.normal((h, w, 3)))
-        return dist, normal
-
 
 class _Distill:
     """The distillation's parameters, Adam groups and one step."""

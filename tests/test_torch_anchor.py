@@ -220,7 +220,8 @@ def sphere():
     params["table"] = 0.1 * jax.random.normal(k2, params["table"].shape)
     dirs = np.asarray(jax.random.normal(k3, (384, 3)))
     dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
-    return jcfg, params, SphereFieldConfig(**SPHERE), \
+    return jcfg, params, SphereFieldConfig(**SPHERE, encoding="brick",
+                                           grad_mode="analytic"), \
         sphere_field_from_jax(params), dirs
 
 

@@ -155,16 +155,27 @@ def test_hash_encode_and_table_grad_match_jax(form):
 def test_hash_encode_refusals():
     t = torch.zeros(TGRID.table_shape)
     x = torch.rand(4, 3)
+    # smoothstep is ported (the sphere field's; test_torch_sphere_hash holds
+    # it against JAX), another interpolation is refused
     smooth = dataclasses.replace(TGRID, interpolation="smoothstep")
-    with pytest.raises(ValueError, match="only linear"):
-        TH.hash_encode(t, x, smooth)
-    with pytest.raises(ValueError, match="only linear"):
-        TH.HashEncode.apply(t, x[:, :1], x[:, 1:2], x[:, 2:], smooth,
+    assert TH.hash_encode(t, x, smooth).shape == (4, TGRID.out_dim)
+    cubic = dataclasses.replace(TGRID, interpolation="cubic")
+    with pytest.raises(ValueError, match="only"):
+        TH.hash_encode(t, x, cubic)
+    with pytest.raises(ValueError, match="only"):
+        TH.HashEncode.apply(t, x[:, :1], x[:, 1:2], x[:, 2:], cubic,
                             (1,) * 6)
+    with pytest.raises(ValueError, match="only"):
+        TH.hash_encode_grad(t, x, cubic)
     with pytest.raises(ValueError, match="table gradient only"):
         TH.hash_encode(t, x.requires_grad_(True), TGRID)
+    # the position-gradient route refuses such coordinates alike: its
+    # d feats / d x is an output, not an autograd path
+    with pytest.raises(ValueError, match="table gradient only"):
+        TH.hash_encode_grad(t, x, smooth)
     with torch.no_grad():              # no gradient asked: allowed
         TH.hash_encode(t, x, TGRID)
+        TH.hash_encode_grad(t, x, smooth)
 
 
 def test_query_rays_and_field_eval_match_jax(field):
@@ -275,3 +286,4 @@ def test_cli_eval_chunk_follows_the_jax_runner():
     assert chunk_of("scene.field={}") == 32768
     assert chunk_of("scene.field.kind=hash",
                     "scene.renderer_conf.eval_chunk=1024") == 1024
+

@@ -13,7 +13,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-import pytest
 import torch
 
 import perf_tpu.core as JC
@@ -111,14 +110,17 @@ def _jax_loss_fn(cfg, data, wts):
     return loss_fn
 
 
-@pytest.fixture(scope="module")
-def distill(room):
-    """The same distillation set-up in both packages: JAX's views, priors
-    and initial parameters (with JAX's draws), a reference distance with a
-    known half (mask 0 on the left)."""
-    jcfg = JJointCfg(**JOINT, field=JSphere(**SPHERE, encoding="brick",
-                                            grad_mode="analytic"))
-    cfg = JointPredictorConfig(**JOINT, field=SphereFieldConfig(**SPHERE))
+def check_distill_steps(jfield, field, room, jit: bool = True):
+    """One step of each phase with JAX's draws on the sphere field ``jfield``
+    (JAX) / ``field`` (port): the loss and the gradients of all three
+    groups against jax.value_and_grad of JAX's loss; then the port's update
+    of the three Adam groups against optax's. The same set-up in both
+    packages: JAX's views, priors and initial parameters (with JAX's
+    draws), a reference distance with a known half (mask 0 on the left).
+    ``jit=False`` runs JAX's loss eagerly (cheaper than an XLA compile of a
+    second-order loss for two calls)."""
+    jcfg = JJointCfg(**JOINT, field=jfield)
+    cfg = JointPredictorConfig(**JOINT, field=field)
     jpred = JJoint(JFakeDepth(), JFakeNormal(), jcfg, seed=3)
     draws = JaxDraws(3, jcfg.field)
     pred = PanoJointPredictor(FakeCubeRoomDepthPredictor(),
@@ -126,14 +128,6 @@ def distill(room):
                               draws=draws)
     mask = np.ones((H, W, 1), np.float32)
     mask[:, :W // 2] = 0.0
-    return jcfg, cfg, jpred, pred, draws, mask
-
-
-def test_distill_step_of_each_phase_matches_jax(distill, room):
-    """One step of each phase with JAX's draws: the loss and the gradients
-    of all three groups against jax.value_and_grad of JAX's loss; then the
-    port's update of the three Adam groups against optax's."""
-    jcfg, cfg, jpred, pred, draws, mask = distill
     img = room["rgb"]
     ref_d = room["distance"] * 1.1
     jdirs, jratios, jc2w, jviews = jpred._make_views(jnp.asarray(img))
@@ -173,10 +167,16 @@ def test_distill_step_of_each_phase_matches_jax(distill, room):
     ostate = {k: adam.init([jnp.asarray(t.detach().numpy()) for t in v])
               for k, v in d.groups.items()}
     key = draws.step_key
-    value_and_grad = jax.jit(jax.value_and_grad(_jax_loss_fn(
-        jcfg, jdata, jnp.asarray(wts, jnp.float32))))
+    value_and_grad = jax.value_and_grad(_jax_loss_fn(
+        jcfg, jdata, jnp.asarray(wts, jnp.float32)))
+    if jit:
+        value_and_grad = jax.jit(value_and_grad)
+    mlp_keys = ("v", "g", "b") if "v" in sp0["mlp"] else ("w", "b")
+    n_mlp = sum(len(sp0["mlp"][k]) for k in mlp_keys)
+    names = (["scale", "table"]
+             + [f"{k}{i}" for k in mlp_keys for i in range(len(sp0["mlp"][k]))]
+             + ["bias_ld", "bias_ln"])
     for i, hybrid in ((1, False), (cfg.iters_per_phase + 1, True)):
-        key_in = key
         key, kc, ko = jax.random.split(key, 3)
         coords = jax.random.uniform(kc, (n_views, cfg.local_batch, 2))
         step_draws = (_t(coords), _t(jax.random.normal(
@@ -189,10 +189,10 @@ def test_distill_step_of_each_phase_matches_jax(distill, room):
         # float32 sums in another order through the field and the samplers
         assert abs(float(loss) - float(l_ref)) <= 1e-5 * abs(float(l_ref))
         j_leaves = ([g_ref["scale"], g_ref["sp"]["table"],
-                     *g_ref["sp"]["mlp"]["w"], *g_ref["sp"]["mlp"]["b"],
+                     *(g for k in mlp_keys for g in g_ref["sp"]["mlp"][k]),
                      g_ref["bias_ld"], g_ref["bias_ln"]])
-        for name, a, b in zip(("scale", "table", "w0", "w1", "w2", "b0", "b1",
-                               "b2", "bias_ld", "bias_ln"), grads, j_leaves):
+        assert len(grads) == len(j_leaves) == len(names)
+        for name, a, b in zip(names, grads, j_leaves):
             # relative norm per parameter; bf16-rounded table rows flip at
             # ties when the float32 cotangents differ by an ulp (bound 1e-3)
             assert _rel(a.numpy(), b) < 1e-3, (hybrid, name, _rel(a, b))
@@ -205,7 +205,7 @@ def test_distill_step_of_each_phase_matches_jax(distill, room):
                  + cfg.lr_alpha)
         k = 0
         for name, n_leaves, lr in (("global", 1, cfg.init_lr),
-                                   ("sp", 7, cfg.init_lr_sp),
+                                   ("sp", 1 + n_mlp, cfg.init_lr_sp),
                                    ("local", 2, cfg.init_lr_local)):
             g = [jnp.asarray(x.numpy()) for x in grads[k:k + n_leaves]]
             old = before[k:k + n_leaves]
@@ -228,13 +228,25 @@ def test_distill_step_of_each_phase_matches_jax(distill, room):
                        params["sp"])}
 
 
+def test_distill_step_of_each_phase_matches_jax(room):
+    """One step of each phase with JAX's draws on the flagship field
+    (brick + analytic) against jax.value_and_grad; the three Adam groups
+    against optax."""
+    check_distill_steps(
+        JSphere(**SPHERE, encoding="brick", grad_mode="analytic"),
+        SphereFieldConfig(**SPHERE, encoding="brick", grad_mode="analytic"),
+        room)
+
+
 def test_joint_predictor_recovers_the_room(room):
     """``test_sphere_analytic.py``'s golden bar through the port: 200 + 200
     distillation steps from the fake priors, median relative distance
     error < 0.15, unit normals."""
     cfg = JointPredictorConfig(gen_res=32, ratios=(1.1,), local_batch=64,
                                iters_per_phase=200, normal_bias_res=16,
-                               field=SphereFieldConfig(**SPHERE))
+                               field=SphereFieldConfig(
+                                   **SPHERE, encoding="brick",
+                                   grad_mode="analytic"))
     pred = PanoJointPredictor(FakeCubeRoomDepthPredictor(),
                               FakeCubeRoomNormalPredictor(), cfg)
     dist, normal = pred(_t(room["rgb"]), torch.ones(H, W, 1),

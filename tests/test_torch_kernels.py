@@ -57,9 +57,19 @@ from perf_tpu_torch.train.scene import (field_prune_occ,
 from perf_tpu_torch.kernels.gather import (onehot_gather, onehot_gather_cuda,
                                            take_gather, take_gather_cuda)
 from perf_tpu_torch.kernels.hashgrid import (
-    HashGridConfig, HashEncode, hash_encode, hash_points_cuda,
+    HashGridConfig, HashEncode, hash_encode, hash_encode_grad,
+    hash_encode_grad_cuda, hash_encode_grad_grad_cuda,
+    hash_encode_grad_grad_plain, hash_encode_grad_plain, hash_points_cuda,
     hash_points_grad_cuda, hash_points_grad_plain, hash_points_plain)
-from perf_tpu_torch.utils import cube_room_occ_grid, random_field_params
+from perf_tpu_torch.utils import (cube_room_occ_grid, random_field_params,
+                                  render_cube_room_pano)
+from perf_tpu_torch.data import Dataset
+from perf_tpu_torch.fields import SphereFieldConfig
+from perf_tpu_torch.priors import (FakeCubeRoomDepthPredictor,
+                                   FakeCubeRoomNormalPredictor,
+                                   PanoFusionConfig, PanoFusionInvPredictor,
+                                   PanoFusionNormalPredictor, PanoGeoRefiner,
+                                   RefinerConfig)
 
 # 4 levels (res 8, 16, 32, 64), levels 2 and 3 hashed into 256 rows
 TINY = NGPFieldConfig(grid=BrickGridConfig(n_levels=4, log2_bricks=8,
@@ -72,6 +82,10 @@ SPHERE = BrickGridConfig.sphere_field(fine_res=256, n_levels=5,
 # rows
 HASH = HashGridConfig(n_levels=6, log2_table_size=10, base_res=4,
                       per_level_scale=1.6)
+# the sphere field's smoothstep hash grid at 4 levels (res 16 .. 64): level
+# 0 dense (17^3 corners), 1-3 hashed into 8192 rows
+HASH_SPHERE = HashGridConfig.sphere_field(fine_res=64, n_levels=4,
+                                          log2_table_size=13)
 RENDER = RenderConfig(step=4e-3, occ_res=64, march_coarse=12)
 SNAP = SnapshotConfig(res=48, sample_stride=12, bake_chunk=4096)
 
@@ -140,14 +154,48 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
         hash_points_grad_cuda(h_table.shape, x, x, x, HASH, (1,) * 6,
                               torch.zeros((6 * 32, 2)))
     smooth = dataclasses.replace(HASH, interpolation="smoothstep")
-    with pytest.raises(ValueError, match="only linear"):
+    with pytest.raises(ValueError, match="CUDA"):
         hash_points_cuda(h_table, x, x, x, smooth, (1,) * 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        hash_points_grad_cuda(h_table.shape, x, x, x, smooth, (1,) * 6,
+                              torch.zeros((6 * 32, 2)))
+    cubic = dataclasses.replace(HASH, interpolation="cubic")
+    with pytest.raises(ValueError, match="only"):
+        hash_points_cuda(h_table, x, x, x, cubic, (1,) * 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        hash_encode_grad_cuda(h_table, o, smooth)
+    with pytest.raises(ValueError, match="CUDA"):
+        hash_encode_grad_grad_cuda(h_table.shape, o, smooth,
+                                   torch.zeros(8, 12), torch.zeros(8, 3, 12))
+    with pytest.raises(ValueError, match="only"):
+        hash_encode_grad_cuda(h_table, o, cubic)
+    # the position-gradient kernels are built for smoothstep only
+    with pytest.raises(ValueError, match="smoothstep"):
+        hash_encode_grad_cuda(h_table, o, HASH)
+    with pytest.raises(ValueError, match="smoothstep"):
+        hash_encode_grad_grad_cuda(h_table.shape, o, HASH,
+                                   torch.zeros(8, 12), torch.zeros(8, 3, 12))
     g_table = torch.zeros((4096, 128), dtype=torch.bfloat16)
     g_rows = torch.zeros(1024, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         take_gather_cuda(g_table, g_rows, 512)
     with pytest.raises(ValueError, match="CUDA"):
         onehot_gather_cuda(g_table, g_rows, 512)
+
+
+def test_non_wild_entry_points_never_fall_back_to_the_cpu(monkeypatch):
+    """Without a visible GPU, a default-constructed refiner or fusion
+    predictor raises rather than quietly running the plain versions on the
+    CPU; asked for the CPU, it runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: PanoGeoRefiner(**kw),
+                 lambda **kw: PanoFusionInvPredictor(
+                     FakeCubeRoomDepthPredictor(), **kw),
+                 lambda **kw: PanoFusionNormalPredictor(
+                     FakeCubeRoomNormalPredictor(), **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
 
 
 def test_plain_path_counts_no_launch():
@@ -176,6 +224,10 @@ def test_plain_path_counts_no_launch():
     t = torch.zeros(HASH.table_shape, requires_grad=True)
     HashEncode.apply(t, x, x, x, HASH, (2, 2, 1, 1, 1, 1)).sum().backward()
     hash_encode(t, torch.rand((5, 3)), HASH).sum().backward()
+    t = torch.zeros(HASH_SPHERE.table_shape, requires_grad=True)
+    hash_encode(t, torch.rand((5, 3)), HASH_SPHERE).sum().backward()
+    f, df = hash_encode_grad(t, torch.rand((6, 3)), HASH_SPHERE)
+    (f.sum() + df.sum()).backward()
     g_table = torch.zeros((4096, 128), dtype=torch.bfloat16)
     take_gather(g_table, torch.zeros(256, dtype=torch.int32), 128)
     onehot_gather(g_table, torch.zeros(256, dtype=torch.int32), 128)
@@ -186,7 +238,9 @@ def test_plain_path_counts_no_launch():
         "count_windows", "shade_composite", "shade_composite_bwd",
         "occ_grid", "bilinear_sample", "bilinear_sample_bwd",
         "brick_encode_grad", "brick_encode_grad_bwd", "occ_prune",
-        "hash_encode", "hash_encode_bwd", "take_gather", "onehot_gather"}
+        "hash_encode", "hash_encode_bwd", "take_gather", "onehot_gather",
+        "hash_encode_smooth", "hash_encode_smooth_bwd", "hash_encode_grad",
+        "hash_encode_grad_bwd"}
     assert all(v == 0 for v in cuda.counts().values())
 
 
@@ -196,7 +250,9 @@ def test_importing_the_anchor_slice_never_imports_jax():
             "perf_tpu_torch.native, perf_tpu_torch.fields.sphere_field, "
             "perf_tpu_torch.core.resample, perf_tpu_torch.kernels.hashgrid, "
             "perf_tpu_torch.kernels.gather, "
-            "perf_tpu_torch.tools.bench_pallas_encode; "
+            "perf_tpu_torch.tools.bench_pallas_encode, "
+            "perf_tpu_torch.priors.pano_refiner, "
+            "perf_tpu_torch.priors.pano_fusion, perf_tpu_torch.data.dataset; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'perf_tpu.', 'flax', 'optax')) "
             "or m == 'perf_tpu']; "
@@ -492,6 +548,106 @@ def test_hash_encode_kernels_match_plain(gpu, n, s):
     # the same float32 contributions; float atomics add them in an order
     # that changes from run to run
     assert ((gt - gt_ref).norm() / gt_ref.norm()).item() <= 1e-6
+
+
+def _sphere_points(n: int, seed: int) -> np.ndarray:
+    """n points in [0, 1]^3, the first few on and beyond the box's faces."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    edge = np.array([[0, 0, 0], [1, 1, 1], [0.5, 0, 1], [-0.1, 1.2, 0.3]],
+                    np.float32)
+    x[:min(n, 4)] = edge[:min(n, 4)]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 2049])
+def test_hash_encode_smooth_kernels_match_plain(gpu, n):
+    dev = gpu[0]
+    grid = HASH_SPHERE
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(_sphere_points(n, n)).to(dev)
+    table = torch.from_numpy(rng.uniform(-0.5, 0.5, grid.table_shape).astype(
+        np.float32)).to(dev)
+    strides = (1,) * grid.n_levels
+    coords = [x[:, a:a + 1].contiguous() for a in range(3)]
+    before = cuda.counts()
+    got = hash_points_cuda(table, *coords, grid, strides)
+    after = cuda.counts()
+    assert after["hash_encode_smooth"] == before["hash_encode_smooth"] + 1
+    assert after["hash_encode"] == before["hash_encode"]
+    ref = hash_points_plain(table, *coords, grid, strides)
+    # the same corners, smoothstep weights and sums in the same order
+    assert (got - ref).abs().max().item() <= 1e-6
+    g = torch.from_numpy(rng.normal(size=tuple(ref.shape)).astype(
+        np.float32)).to(dev)
+    gt = hash_points_grad_cuda(table.shape, *coords, grid, strides, g)
+    assert cuda.counts()["hash_encode_smooth_bwd"] == \
+        before["hash_encode_smooth_bwd"] + 1
+    gt_ref = hash_points_grad_plain(table.shape, *coords, grid, strides, g)
+    # the same float32 contributions, added by float atomics
+    assert ((gt - gt_ref).norm() / gt_ref.norm()).item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 2049])
+def test_hash_encode_grad_kernels_match_plain(gpu, n):
+    dev = gpu[0]
+    grid = HASH_SPHERE
+    rng = np.random.default_rng(n + 1)
+    x = torch.from_numpy(_sphere_points(n, n + 1)).to(dev)
+    table = torch.from_numpy(rng.uniform(-0.5, 0.5, grid.table_shape).astype(
+        np.float32)).to(dev)
+    before = cuda.counts()
+    f, df = hash_encode_grad_cuda(table, x, grid)
+    assert cuda.counts()["hash_encode_grad"] == before["hash_encode_grad"] + 1
+    f_ref, df_ref = hash_encode_grad_plain(table, x, grid)
+    # the same corners, weights, derivative weights and sums in the same
+    # order (no contraction)
+    assert (f - f_ref).abs().max().item() <= 1e-6
+    assert ((df - df_ref).abs().max() / df_ref.abs().max()).item() <= 1e-6
+    gf = torch.from_numpy(rng.normal(size=tuple(f.shape)).astype(
+        np.float32)).to(dev)
+    gd = torch.from_numpy(rng.normal(size=tuple(df.shape)).astype(
+        np.float32)).to(dev)
+    gt = hash_encode_grad_grad_cuda(table.shape, x, grid, gf, gd)
+    assert cuda.counts()["hash_encode_grad_bwd"] == \
+        before["hash_encode_grad_bwd"] + 1
+    gt_ref = hash_encode_grad_grad_plain(table.shape, x, grid, gf, gd)
+    # the same float32 contributions, added by float atomics
+    assert ((gt - gt_ref).norm() / gt_ref.norm()).item() <= 1e-6
+    # through the autograd function: both cotangents reach the table
+    leaf = table.clone().requires_grad_(True)
+    ff, dd = hash_encode_grad(leaf, x, grid)
+    (g_auto,) = torch.autograd.grad((ff, dd), leaf, (gf, gd))
+    assert ((g_auto - gt_ref).norm() / gt_ref.norm()).item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_non_wild_entry_points_default_to_the_card(gpu):
+    """The non-Wild geometry API's entry points run on the card unless the
+    caller asks for the CPU: a default-constructed refiner and fusion
+    predictor, and the dataset's masks, live on the GPU."""
+    dev = gpu[0]
+    refiner = PanoGeoRefiner(RefinerConfig(
+        n_iters=2, batch_size=64, scan_chunk=1, field=SphereFieldConfig(
+            n_levels=2, log2_table_size=12, fine_res=32, weight_norm=True,
+            output="raw", encoding="hash", grad_mode="ad")))
+    inv = PanoFusionInvPredictor(FakeCubeRoomDepthPredictor(),
+                                 PanoFusionConfig(gen_res=8, iters=2,
+                                                  scan_chunk=1))
+    nrm = PanoFusionNormalPredictor(FakeCubeRoomNormalPredictor(),
+                                    PanoFusionConfig(gen_res=8, iters=2,
+                                                     scan_chunk=1))
+    assert {refiner.device.type, inv.device.type, nrm.device.type} == {"cuda"}
+    ds = Dataset()
+    pano = render_cube_room_pano(torch.eye(4), 8, 16)
+    ds.image, ds.height, ds.width = pano["rgb"], 8, 16
+    dist = ds.get_ref_distance(inv)
+    normal = ds.get_ref_normal(nrm)
+    r_dist, r_normal = ds.refine_geometry(dist, normal, refiner)
+    assert all(t.device.type == "cuda"
+               for t in (dist, normal, r_dist, r_normal))
 
 
 @pytest.mark.cuda

@@ -5,8 +5,9 @@
   geometry -> geo-check -> mask algebra -> register), the joint
   predictor with JAX's draws; the registered pano must agree.
 - The CLI: ``python -m perf_tpu_torch --device cpu`` with the overrides of
-  ``tests/test_pipeline_e2e.py`` (without ``snapshot.frame_dispatch``, and
-  with a 6-level sphere field for the joint predictor) bootstraps the
+  ``tests/test_pipeline_e2e.py`` (without ``snapshot.frame_dispatch`` and
+  ``scene.train_conf.scan_chunk``, which the port refuses, and with a
+  6-level sphere field for the joint predictor) bootstraps the
   geometry, fits, runs one anchor, then renders the dense traverse; the
   checkpoint (phase 1, two panos) loads in JAX.
 
@@ -47,7 +48,9 @@ OVERRIDES = [
     # 20 + 20 distillation steps (the JAX test runs 50 + 50) keep the file
     # within a minute on one core
     "priors.joint.iters_per_phase=20",
-    "priors.joint.scan_chunk=20",
+    # divides the 20 and the registration test's 10 steps per phase (JAX
+    # asserts it, and so does the port)
+    "priors.joint.scan_chunk=10",
     "priors.joint.field.n_levels=6",
     "priors.joint.field.log2_table_size=12",
     "priors.joint.field.fine_res=128",
@@ -65,7 +68,6 @@ OVERRIDES = [
     "scene.train_conf.raw_phase_iter_geo=30",
     "scene.train_conf.raw_phase_iter_app=30",
     "scene.train_conf.pixel_loss_batch_size=256",
-    "scene.train_conf.scan_chunk=25",
     "render_dense.n_poses=12",
     "render_dense.height=32",
     "render_dense.width=64",

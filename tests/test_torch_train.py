@@ -492,3 +492,61 @@ def test_cli_train_writes_a_checkpoint_jax_loads(tmp_path, room, one_thread):
     with pytest.raises(ValueError, match="resizing is not ported"):
         main(["--device", "cpu", f"dataset.image_path={room_dir / 'image.png'}",
               f"device.base_exp_dir={exp}", "mode=train"])
+
+
+def test_cli_refuses_what_jax_asserts_or_the_port_lacks(tmp_path):
+    """``scene.train_conf.scan_chunk`` other than 1 (JAX's k steps per
+    dispatch, not ported) raises; ``priors.joint.scan_chunk`` must divide
+    ``iters_per_phase`` as JAX asserts; ``priors.joint.field.*`` replace
+    keys of the joint default field (brick + analytic) as the JAX runner's
+    ``_joint_cfg`` does, so hash alone (hash + analytic) and brick + ad are
+    refused, and hash + ad is the published PeRF's field."""
+    import dataclasses
+    import os
+    from types import SimpleNamespace
+
+    from perf_tpu.app.runner import CoreRunner as JRunner
+    from perf_tpu.config import load_config as j_load_config
+
+    from perf_tpu_torch.__main__ import main
+    from perf_tpu_torch.app.runner import joint_config, train_config
+    from perf_tpu_torch.config import load_config
+
+    configs = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs")
+
+    def both(*overrides):
+        conf = load_config(configs, "nerf", list(overrides))
+        jconf = j_load_config(configs, "nerf", list(overrides))
+        return conf, JRunner._joint_cfg(SimpleNamespace(conf=jconf))
+
+    with pytest.raises(ValueError, match="scan_chunk"):
+        train_config(load_config(configs, "nerf", [
+            "scene.train_conf.scan_chunk=3"])["scene"]["train_conf"])
+    with pytest.raises(ValueError, match="scan_chunk"):
+        main(["--device", "cpu", "--config-name", "nerf",
+              f"device.base_exp_dir={tmp_path}", "mode=train",
+              "scene.train_conf.scan_chunk=25"])
+    with pytest.raises(ValueError, match="scan_chunk"):
+        joint_config(load_config(configs, "nerf", [
+            "priors.joint.iters_per_phase=100", "priors.joint.scan_chunk=3"]))
+    for overrides in (["priors.joint.iters_per_phase=100",
+                       "priors.joint.scan_chunk=20"],
+                      ["priors.joint.field.encoding=hash",
+                       "priors.joint.field.grad_mode=ad"],
+                      ["priors.joint.field.encoding=brick",
+                       "priors.joint.field.grad_mode=fd",
+                       "priors.joint.field.fine_res=1024"]):
+        conf, jcfg = both(*overrides)
+        assert (dataclasses.asdict(joint_config(conf))
+                == dataclasses.asdict(jcfg)), overrides
+    cfg = joint_config(both("priors.joint.field.encoding=hash",
+                            "priors.joint.field.grad_mode=ad")[0])
+    assert (cfg.field.encoding, cfg.field.grad_mode, cfg.field.fine_res,
+            cfg.field.log2_table_size) == ("hash", "ad", 2048, 19)
+    with pytest.raises(ValueError, match="analytic"):
+        joint_config(load_config(configs, "nerf", [
+            "priors.joint.field.encoding=hash"]))
+    with pytest.raises(ValueError, match="'ad' needs"):
+        joint_config(load_config(configs, "nerf", [
+            "priors.joint.field.grad_mode=ad"]))
