@@ -62,17 +62,26 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    with derivatives launched and the brick one not; finite fused maps,
    unit refined normals, the refined distance within the JAX test's bar
    (median relative difference < 0.15) of its input;
-8. kernels: holds each kernel against its plain PyTorch version on the
+8. prop: the proposal estimator (``scene.estimator_type=prop``: the brick
+   final field at full width, two hash proposal fields [5, 2, 2^17], 8192
+   rays, 128 -> 64 -> 64 samples) on the off-centre room with its cache:
+   ``mode=train`` (300 + 150 steps, one anchor), ``mode=render_dense`` (4
+   frames at 512x1024), then ``mode=serve`` from its checkpoint (a pano and
+   a perspective request, ``/info``). Checks: the training phase's (the
+   proposal loss of the first and last 20 geometry steps is printed, not
+   checked), finite registered maps, the five K11 kernels launched and no
+   occupancy-path kernel;
+9. kernels: holds each kernel against its plain PyTorch version on the
    same inputs at the shapes of its path (and the training kernels also at
    the pinned 8192 rays x 128 samples), and times both, with
    ``F.grid_sample`` beside the resampler and ``table[rows]`` beside the
    gathers.
 
 Launch counts are zeroed just before each path (gather, train, serve,
-anchor, hash, sphere: its CLI run and its API run) and read just after
-it; every kernel of a path must have launched there. It prints a
-``gather``, a ``train``, a ``serve``, an ``anchor``, a ``hash`` and a
-``sphere`` summary, the ``kernels``
+anchor, hash, sphere: its CLI run and its API run, prop) and read just
+after it; every kernel of a path must have launched there. It prints a
+``gather``, a ``train``, a ``serve``, an ``anchor``, a ``hash``, a
+``sphere`` and a ``prop`` summary, the ``kernels``
 line (each kernel with its launches on its path, error, ms, plain ms,
 library ms and the card's bound for the same work), the card's name and
 power limit, and, last, ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; without
@@ -133,6 +142,11 @@ REPLACES = {
     "hash_encode_smooth_bwd": "perf_tpu/kernels/hashgrid.py:104",
     "hash_encode_grad": "perf_tpu/fields/sphere_field.py:144",
     "hash_encode_grad_bwd": "perf_tpu/fields/sphere_field.py:144",
+    "prop_resample": "perf_tpu/render/prop.py:42",
+    "prop_weights": "perf_tpu/render/prop.py:66",
+    "prop_weights_bwd": "perf_tpu/render/prop.py:66",
+    "prop_loss": "perf_tpu/render/prop.py:142",
+    "prop_loss_bwd": "perf_tpu/render/prop.py:142",
 }
 SERVE_KERNELS = ("field_eval", "bake_scatter_pack", "march_windows",
                  "snapshot_composite")
@@ -173,6 +187,19 @@ SMOOTH_KERNELS = ("hash_encode_smooth", "hash_encode_smooth_bwd")
 SPHERE_API_PATH = SMOOTH_KERNELS + (
     "bilinear_sample", "bilinear_sample_bwd", "brick_encode_grad",
     "brick_encode_grad_bwd")
+# the proposal estimator (scene.estimator_type=prop) on the train cell's
+# room: the K11 kernels, the proposal fields' hash encode and the brick
+# final field's encode, and none of the occupancy path's kernels
+PROP_KERNELS = ("prop_resample", "prop_weights", "prop_weights_bwd",
+                "prop_loss", "prop_loss_bwd")
+PROP_PATH = PROP_KERNELS + ("hash_encode", "hash_encode_bwd", "brick_encode",
+                            "brick_encode_bwd")
+OCC_KERNELS = ("march_windows", "march_windows_stratified", "count_windows",
+               "shade_composite", "shade_composite_bwd", "occ_grid",
+               "occ_prune", "bake_scatter_pack", "snapshot_composite",
+               "field_eval")
+PROP_ANCHORS = 1
+PROP_DENSE = 4
 REFINER_ITERS = 100          # of the refiner's 5000
 FUSION_ITERS = 100           # of the fusion predictors' 1000
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 FLOP/s off
@@ -328,10 +355,12 @@ SERVE_REQUESTS = {
 }
 
 
-def serve_phase(overrides: list, names=tuple(SERVE_REQUESTS)) -> tuple:
+def serve_phase(overrides: list, names=tuple(SERVE_REQUESTS),
+                baked: bool = True) -> tuple:
     """Start the CLI's server from the checkpoint and answer the requests
-    ``names`` of SERVE_REQUESTS. Returns (httpd, responses, seconds to
-    ready)."""
+    ``names`` of SERVE_REQUESTS; ``/health`` reports a baked snapshot iff
+    ``baked`` (a prop scene has none). Returns (httpd, responses, seconds
+    to ready)."""
     from perf_tpu_torch.__main__ import main as cli_main
     t0 = time.perf_counter()
     httpd = cli_main(["--device", "cuda", "--config-name", "nerf",
@@ -341,7 +370,7 @@ def serve_phase(overrides: list, names=tuple(SERVE_REQUESTS)) -> tuple:
     code, ctype, body = fetch(base + "/health")
     health = json.loads(body)
     check(code == 200 and health["status"] == "ok"
-          and health["snapshot_baked"], f"bad /health {health}")
+          and health["snapshot_baked"] is baked, f"bad /health {health}")
     responses = {}
     for name in names:
         path = SERVE_REQUESTS[name]
@@ -1716,6 +1745,281 @@ def compare_gather_kernels(sweep: dict, seed: int) -> dict:
     return out
 
 
+def prop_phase(train_overrides: list, serve_overrides: list):
+    """The proposal estimator through the CLI: ``mode=train`` (the raw fit,
+    then PROP_ANCHORS anchor), ``mode=render_dense`` (PROP_DENSE frames),
+    then ``mode=serve`` from its checkpoint with a pano and a perspective
+    request and ``/info``; checked. Returns (train runner, served scene,
+    summary)."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.__main__ import main as cli_main
+    from perf_tpu_torch.train import PropNeRFScene
+    from perf_tpu_torch.train.prop_scene import PROP_FIELD_CFGS
+    from perf_tpu_torch.utils.io import decode_png
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = cli_main(["--device", "cuda", "--config-name", "nerf",
+                       *train_overrides, "mode=train"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    scene = runner.scene
+    check(isinstance(scene, PropNeRFScene), f"not a prop scene: {scene}")
+    check([tuple(p["table"].shape) for p in scene.prop_params]
+          == [(5, 2, 1 << 17)] * 2 and scene.prop_cfg.n_samples_per_prop
+          == (128, 64) and scene.prop_cfg.n_samples == 64,
+          "not the production cascade")
+    fit = check_raw_fit(runner)
+    geo = runner.losses["geo_losses"]
+    fit["prop_loss_first20"] = float(geo[:20, 2].mean())
+    fit["prop_loss_last20"] = float(geo[-20:, 2].mean())
+    log(f"prop: proposal loss of the first / last 20 geo steps "
+        f"{fit['prop_loss_first20']} / {fit['prop_loss_last20']}")
+    check(runner.phase == PROP_ANCHORS, f"phase {runner.phase}")
+    for info in runner.sup_pool.sup_infos[1:]:
+        for name in ("color_map", "distance_map", "normal_map"):
+            check(np.isfinite(getattr(info, name)).all(), f"anchor {name}")
+    t1 = time.perf_counter()
+    dense = cli_main(["--device", "cuda", "--config-name", "nerf",
+                      *train_overrides, "mode=render_dense",
+                      "is_continue=true"])
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t1
+    out_dir = os.path.join(runner.exp_dir, "dense_images_new_pano")
+    frames = sorted(f for f in os.listdir(out_dir) if f.startswith("image_"))
+    check(len(frames) >= PROP_DENSE, f"{len(frames)} dense frames")
+    with open(os.path.join(out_dir, frames[-1]), "rb") as f:
+        frame = decode_png(f.read())
+    check(frame.shape == (FRAME_H, FRAME_W, 3) and float(frame.std()) > 5.0,
+          f"dense frame flat or misshapen: {frame.shape} {frame.std()}")
+    httpd, responses, ready_s = serve_phase(serve_overrides, ("pano", "pers"),
+                                            baked=False)
+    try:
+        served = httpd.scene_server.scene
+        check(isinstance(served, PropNeRFScene)
+              and served.field_cfg == scene.field_cfg, "served scene")
+        check_responses(httpd, responses)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        code, _, body = fetch(base + "/info")
+        info = json.loads(body)
+        check(code == 200 and info["snapshot_baked"] is False
+              and info["n_rendered"] >= 4, f"bad /info {info}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    peak = torch.cuda.max_memory_allocated()
+    recs = _metrics(runner.exp_dir)
+    metric = {(r["tag"], r["step"]): r["value"] for r in recs}
+    fms = dense.frame_ms
+    summary = {
+        "cascade": [list(scene.prop_cfg.n_samples_per_prop),
+                    scene.prop_cfg.n_samples],
+        "prop_fields": [dataclasses.asdict(c) for c in PROP_FIELD_CFGS],
+        "steps": list(TRAIN_STEPS), "anchors": PROP_ANCHORS,
+        "batch": scene.train_cfg.pixel_loss_batch_size, "train_s": train_s,
+        "episode_geo_s": metric[("time/fit_geo_prop_sec", 0)],
+        "episode_app_s": metric[("time/fit_app_prop_sec", 0)],
+        "rays_per_s": {
+            "geo": metric[("throughput/fit_geo_prop_rays_per_sec", 0)],
+            "app": metric[("throughput/fit_app_prop_rays_per_sec", 0)]},
+        "anchor_timers_s": {r["tag"][5:-4]: r["value"] for r in recs
+                            if r["tag"].startswith("time/anchor_")},
+        **fit, "pool_rays": runner.sup_pool.n_valid,
+        "render_dense_s": dense_s, "dense_frames": len(frames),
+        "dense_frame_ms": sorted(fms)[len(fms) // 2],
+        "dense_frame_ms_all": fms, "serve_ready_s": ready_s,
+        "request_ms": {k: v[2] for k, v in responses.items()},
+        "info": info, "max_memory_allocated": peak}
+    return runner, served, summary
+
+
+def _prop_inputs(runner, seed: int) -> tuple:
+    """A training step's cascade at the path's shapes (8192 pool rays,
+    128 -> 64 -> 64), through the kernels, without gradients: per proposal
+    level its edges, densities, weights and u; the final edges, densities
+    and weights."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.fields.ngp import query_density_field, query_density_ray
+    from perf_tpu_torch.render import prop as P
+    from perf_tpu_torch.train.prop_scene import PROP_FIELD_CFGS, pool_batch
+    scene = runner.scene
+    dev, cfg = scene.device, scene.prop_cfg
+    arrs = runner.sup_pool.device_arrays(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    b = scene.train_cfg.pixel_loss_batch_size
+    o, d, _, _ = pool_batch(arrs, torch.rand(b, generator=g, device=dev))
+    draws = P.prop_draws(g, b, cfg, dev)
+    n0 = cfg.n_samples_per_prop[0]
+    counts = list(cfg.n_samples_per_prop[1:]) + [cfg.n_samples]
+    with torch.no_grad():
+        edges = (P.linspace_f32(cfg.near, cfg.far, n0 + 1, dev).expand(
+            b, n0 + 1) + draws["jitter"] * float(np.float32(
+                (cfg.far - cfg.near) / n0))).contiguous()
+        levels = []
+        for lvl, (pp, pc) in enumerate(zip(scene.prop_params,
+                                           PROP_FIELD_CFGS)):
+            mids = 0.5 * (edges[:, 1:] + edges[:, :-1])
+            pts = o[:, None] + d[:, None] * mids[..., None]
+            sigma = query_density_field(pp, pts, pc)[..., 0].contiguous()
+            w = P.weights_from_density(sigma, edges, override_last=True)
+            u = P.stratified_u(draws["u"][lvl], counts[lvl]).contiguous()
+            levels.append({"edges": edges, "sigma": sigma, "w": w, "u": u})
+            edges = P.sample_from_weights(edges, w, u)
+        mids = 0.5 * (edges[:, 1:] + edges[:, :-1])
+        px, py, pz = (o[:, a:a + 1] + d[:, a:a + 1] * mids for a in range(3))
+        sigma = query_density_ray(scene.params["geo"], px, py, pz,
+                                  scene.field_cfg,
+                                  (1,) * scene.field_cfg.grid.n_levels)
+        final = {"edges": edges, "sigma": sigma.contiguous(),
+                 "w": P.weights_from_density(sigma, edges)}
+    return levels, final
+
+
+def compare_prop_kernels(runner, seed: int) -> dict:
+    """The five K11 entry points against their plain versions on the
+    cascade of a training step at the path's shapes (``_prop_inputs``):
+    the resampling of both levels (indices equal, edges within 1e-6), the
+    weights of level 0 (the 1e10 override) and of the final field (within
+    1e-5 relative + 2e-7: expf against torch's exp; the rays whose last
+    bin took float32 cancellation are counted), their gradients and both
+    levels' loss and gradient (per-ray sums within 1e-5 relative,
+    gradients within 1e-5 relative norm); each timed at level 0's shapes
+    (the first two at the final field's too), with its bound."""
+    import numpy as np
+    import torch
+    from perf_tpu_torch.render import prop as P
+    levels, final = _prop_inputs(runner, seed)
+    gen = torch.Generator(device=final["w"].device).manual_seed(seed + 4)
+    res = {k: {} for k in ("prop_resample", "prop_weights",
+                           "prop_weights_bwd", "prop_loss", "prop_loss_bwd")}
+
+    def rel_norm(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    for tag, lv in (("level0", levels[0]), ("level1", levels[1])):
+        e, w, u = lv["edges"], lv["w"], lv["u"]
+        n, m = w.shape
+        k = u.shape[1]
+        got, idx = P.sample_from_weights_cuda(e, w, u, return_idx=True)
+        ref, ref_idx = P.sample_from_weights_plain(e, w, u)
+        torch.cuda.synchronize()
+        check(torch.equal(idx.long(), ref_idx), f"prop_resample ({tag}): "
+              f"{int((idx.long() != ref_idx).sum())} indices differ")
+        err = (got - ref).abs().max().item()
+        check(err <= 1e-6, f"prop_resample ({tag}): edges off by {err}")
+        # edges, weights and u in, new edges out; per output a search of
+        # ceil(log2(M + 2)) steps and ~10 operations, per bin ~3
+        res["prop_resample"][tag] = {
+            "shape": [n, m, k - 1], "max_abs_err": err,
+            "ms": cuda_ms(lambda: P.sample_from_weights_cuda(e, w, u), 50),
+            "plain_ms": cuda_ms(lambda: P.sample_from_weights_plain(e, w, u),
+                                5),
+            **bound(nbytes(e, w, u, got),
+                    n * (3 * m + k * (int(np.ceil(np.log2(m + 2))) + 10)))}
+
+    for tag, lv, override in (("level0", levels[0], True),
+                              ("final", final, False)):
+        s, e = lv["sigma"], lv["edges"]
+        n, m = s.shape
+        got = P.weights_from_density_cuda(s, e, override)
+        ref = P.weights_from_density_plain(s, e, override)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        check(bool((err <= 1e-5 * ref.abs() + 2e-7).all()),
+              f"prop_weights ({tag}): {err.max().item()}")
+        tau = P._tau(s, e, override)[0]
+        prefix = (P.xla_cumsum(tau) - tau)[:, -1]
+        true_prefix = (torch.cumsum(tau.double(), -1) - tau.double())[:, -1]
+        g = torch.randn((n, m), generator=gen, device=s.device)
+        ds = P.weights_from_density_bwd_cuda(s, e, g, override)
+        ds_ref = P.weights_from_density_bwd_plain(s, e, g, override)
+        torch.cuda.synchronize()
+        rel = rel_norm(ds, ds_ref)
+        check(rel <= 1e-5, f"prop_weights_bwd ({tag}): rel {rel}")
+        check(not override or bool((ds[:, -1] == 0).all()),
+              "prop_weights_bwd: an overridden last sigma got a gradient")
+        res["prop_weights"][tag] = {
+            "shape": [n, m], "max_abs_err": err.max().item(),
+            "max_rel_err": (err / (ref.abs() + 1e-30))[ref.abs() > 1e-6]
+            .max().item(),
+            "last_bin_equal": bool(torch.equal(got[:, -1], ref[:, -1])),
+            # rays whose last-bin transmittance, from JAX's rounded prefix,
+            # is off the true exclusive scan's by more than 1e-6
+            "last_bin_rounded_rays": int(((-prefix.double()).exp()
+                                          - (-true_prefix).exp()).abs()
+                                         .gt(1e-6).sum()),
+            # what the rounding does to the resampling: the true prefix
+            # before the last bin, the rays whose rounded prefix is 0 and
+            # the share of each ray's weight that sits in its last bin
+            "last_bin_true_prefix_median": true_prefix.median().item(),
+            "last_bin_prefix_zero_share": (prefix == 0).float().mean().item(),
+            "last_bin_weight_share": (got[:, -1] / got.sum(-1).clamp_min(
+                1e-30)).mean().item(),
+            # the final samples that fall in level 0's last bin
+            "final_samples_in_last_bin": (0.5 * (final["edges"][:, 1:]
+                                                 + final["edges"][:, :-1])
+                                          >= levels[0]["edges"][:, -2:-1])
+            .float().mean().item(),
+            "ms": cuda_ms(lambda: P.weights_from_density_cuda(s, e, override),
+                          50),
+            "plain_ms": cuda_ms(lambda: P.weights_from_density_plain(
+                s, e, override), 5),
+            # sigma and edges in, w out; ~10 operations and two exp a bin
+            **bound(nbytes(s, e, got), n * m * 12)}
+        res["prop_weights_bwd"][tag] = {
+            "shape": [n, m], "max_abs_err": (ds - ds_ref).abs().max().item(),
+            "rel_norm_err": rel,
+            "ms": cuda_ms(lambda: P.weights_from_density_bwd_cuda(
+                s, e, g, override), 50),
+            "plain_ms": cuda_ms(lambda: P.weights_from_density_bwd_plain(
+                s, e, g, override), 5),
+            # sigma, edges and dw in, dsigma out; ~20 operations a bin
+            **bound(nbytes(s, e, g, ds), n * m * 20)}
+
+    tf, wf = final["edges"], final["w"]
+    for tag, lv in (("level0", levels[0]), ("level1", levels[1])):
+        te, wp = lv["edges"], lv["w"]
+        n, m = wp.shape
+        k = wf.shape[1]
+        got = P.prop_loss_cuda(te, wp, tf, wf)
+        ref = P.prop_loss_plain(te, wp, tf, wf)
+        g = torch.full((n,), 1.0 / wf.numel(), device=wp.device)
+        dw = P.prop_loss_bwd_cuda(te, wp, tf, wf, g)
+        dw_ref = P.prop_loss_bwd_plain(te, wp, tf, wf, g)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        check(bool((err <= 1e-5 * ref.abs() + 1e-12).all()),
+              f"prop_loss ({tag}): {err.max().item()}")
+        check(ref.sum().item() > 0, f"prop_loss ({tag}) is 0")
+        rel = rel_norm(dw, dw_ref)
+        check(rel <= 1e-5, f"prop_loss_bwd ({tag}): rel {rel}")
+        searches = n * k * 2 * int(np.ceil(np.log2(m + 2)))
+        res["prop_loss"][tag] = {
+            "shape": [n, m, k], "max_abs_err": err.max().item(),
+            "loss": (ref.sum() / wf.numel()).item(),
+            "ms": cuda_ms(lambda: P.prop_loss_cuda(te, wp, tf, wf), 50),
+            "plain_ms": cuda_ms(lambda: P.prop_loss_plain(te, wp, tf, wf),
+                                5),
+            # both levels' edges and weights in, a sum per ray out
+            **bound(nbytes(te, wp, tf, wf, got), n * m + searches + n * k * 8)}
+        res["prop_loss_bwd"][tag] = {
+            "shape": [n, m, k], "max_abs_err": (dw - dw_ref).abs().max().item(),
+            "rel_norm_err": rel,
+            "ms": cuda_ms(lambda: P.prop_loss_bwd_cuda(te, wp, tf, wf, g), 50),
+            "plain_ms": cuda_ms(lambda: P.prop_loss_bwd_plain(
+                te, wp, tf, wf, g), 5),
+            **bound(nbytes(te, wp, tf, wf, g, dw),
+                    n * 2 * m + searches + n * k * 12)}
+    # the rows of the kernels line: level 0's shapes (the largest)
+    return {name: {**r["level0"], **{t: v for t, v in r.items()
+                                     if t != "level0"}}
+            for name, r in res.items()}
+
+
 def run(seed: int):
     import numpy as np
     import torch
@@ -1923,7 +2227,41 @@ def run(seed: int):
     sphere.update(distill_steps(distill, JOINT_ITERS))
     del distill
 
-    # 8. kernels vs their plain versions at the path's shapes
+    # 8. the proposal estimator: mode=train with one anchor, render_dense,
+    # then mode=serve from its checkpoint, counted together
+    prop_common = [
+        f"device.base_exp_dir={os.path.join(RUN_DIR, 'prop_exp')}",
+        f"dataset.image_path={image}", "scene.estimator_type=prop"]
+    for cut in (f"fit steps 3000 + 1500 -> {TRAIN_STEPS[0]} + "
+                f"{TRAIN_STEPS[1]}", f"anchors 24 -> {PROP_ANCHORS}",
+                f"priors.joint.iters_per_phase 1500 -> {JOINT_ITERS}",
+                f"dense frames 180 -> {PROP_DENSE}"):
+        log(f"prop path cut: {cut}")
+    cuda.reset_counts()
+    prop_runner, prop_scene, prop = prop_phase(
+        prop_common + [
+            f"priors.joint.iters_per_phase={JOINT_ITERS}",
+            f"scene.train_conf.raw_phase_iter_geo={TRAIN_STEPS[0]}",
+            f"scene.train_conf.raw_phase_iter_app={TRAIN_STEPS[1]}",
+            "pose_sampler.traverse_ratios=[0.4]",
+            f"pose_sampler.n_anchors_per_ratio=[{PROP_ANCHORS}]",
+            f"render_dense.n_poses={PROP_DENSE}",
+            f"render_dense.height={FRAME_H}", f"render_dense.width={FRAME_W}"],
+        prop_common + ["mode=serve", "is_continue=true", "serve.port=0",
+                       f"serve.height={FRAME_H}", f"serve.width={FRAME_W}"])
+    launches_prop = cuda.counts()
+    log(f"launches on the prop path: {launches_prop}")
+    check(all(launches_prop[k] > 0 for k in PROP_PATH),
+          f"a kernel never launched on the prop path: {launches_prop}")
+    check(all(launches_prop[k] == 0 for k in OCC_KERNELS),
+          f"an occupancy-path kernel launched on the prop path: "
+          f"{launches_prop}")
+    prop["launches"] = {k: v for k, v in launches_prop.items() if v}
+    prop.update(warm_steps(prop_runner))
+    log(f"prop: {json.dumps(prop)}")
+    del prop_scene
+
+    # 9. kernels vs their plain versions at the path's shapes
     idx = bake_corners(scene.occ_grid, scene.render_cfg.occ_res,
                        scene.snap_cfg.res)
     serve["bake_corners"] = int(idx.shape[0])
@@ -1940,6 +2278,7 @@ def run(seed: int):
     results.update(compare_gather_kernels(gather, seed))
     results.update(compare_sphere_kernels(sphere_runner.geo_predictor.cfg.field,
                                           seed))
+    results.update(compare_prop_kernels(prop_runner, seed))
     for name, r in results.items():
         log(f"{name}: {json.dumps(r)}")
     kernels = []
@@ -1957,6 +2296,8 @@ def run(seed: int):
             counted, path = launches_sphere[name], "sphere"
         elif name in SMOOTH_KERNELS:
             counted, path = launches_api[name], "sphere_api"
+        elif name in PROP_KERNELS:
+            counted, path = launches_prop[name], "prop"
         else:
             counted, path = launches_train[name], "train"
         # the training kernels at the smoke scene's shape (the pinned
@@ -1971,15 +2312,22 @@ def run(seed: int):
             "replaces": REPLACES[name], "path": path, "launches": counted,
             "max_abs_err": top["max_abs_err"],
             **{k: top[k] for k in ("max_rel_err", "loose_share",
-                                   "rel_norm_err", "differing_voxels", "dropped",
+                                   "rel_norm_err", "last_bin_equal",
+                                   "last_bin_rounded_rays",
+                                   "last_bin_true_prefix_median",
+                                   "last_bin_prefix_zero_share",
+                                   "last_bin_weight_share",
+                                   "final_samples_in_last_bin", "shape",
+                                   "differing_voxels", "dropped",
                                    "random_head_check", "block", "ms_by_block",
                                    "formulation_bound_ms") if k in top},
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top.get("library_ms"),
-            **{k: r[k] for k in ("pinned", "readback", "bake") if k in r}})
+            **{k: r[k] for k in ("pinned", "readback", "bake", "level1",
+                                 "final") if k in r}})
     return {"gather": gather, "train": train, "serve": serve,
-            "anchor": anchor, "hash": hashp, "sphere": sphere,
+            "anchor": anchor, "hash": hashp, "sphere": sphere, "prop": prop,
             "kernels": kernels}
 
 

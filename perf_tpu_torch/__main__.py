@@ -19,8 +19,11 @@ render and snapshot configs as ``runner.py:175-249`` does.
 ``scene.field`` chooses the grid as the JAX runner does: ``kind: brick``
 the brick grid; another kind with keys (``kind: hash``) a hash grid of
 those keys (``log2_table_size`` 18 by default); no keys the default NGP
-field (the hash grid). Only the ``occ`` estimator is ported. The device
-defaults to ``cuda``; ``--device cpu`` runs the plain versions.
+field (the hash grid). ``scene.estimator_type`` chooses the scene as
+``runner.py:218-226`` does: ``occ`` (the default) the occupancy-grid
+``NeRFScene``, ``prop`` the proposal cascade's ``PropNeRFScene`` (its
+render config takes only ``renderer_conf.bg_color``); any other raises.
+The device defaults to ``cuda``; ``--device cpu`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -43,15 +46,41 @@ def exp_dir_of(conf) -> str:
                  conf["exp_name"])
 
 
+ESTIMATORS = ("occ", "prop")
+
+
+def estimator_type(conf) -> str:
+    est = conf["scene"].get("estimator_type", "occ")
+    if est not in ESTIMATORS:
+        raise ValueError(f"scene.estimator_type={est!r}: expected one of "
+                         f"{ESTIMATORS}")
+    return est
+
+
+def make_scene(conf, generator: torch.Generator, device: torch.device,
+               train_cfg=None, writer=None):
+    """The scene of ``scene.estimator_type``: a ``NeRFScene`` (occ) or a
+    ``PropNeRFScene`` (prop), freshly initialised from ``generator``."""
+    from .render.prop import PropRenderConfig
+    from .train import NeRFScene, PropNeRFScene, TrainConfig
+    field_cfg, render_cfg, snap_cfg = scene_configs(conf)
+    if estimator_type(conf) == "prop":
+        rc = conf.get_path("scene.renderer_conf", {}) or {}
+        return PropNeRFScene(
+            field_cfg, PropRenderConfig(bg_color=rc.get("bg_color",
+                                                        "rand_noise")),
+            train_cfg or TrainConfig(), generator, device, writer)
+    return NeRFScene(field_cfg, render_cfg, generator, device, snap_cfg,
+                     train_cfg, writer)
+
+
 def scene_configs(conf):
     """(NGPFieldConfig, RenderConfig, SnapshotConfig) from a loaded config,
     with the JAX runner's keys and defaults."""
     from .fields import NGPFieldConfig
     from .kernels import BrickGridConfig, HashGridConfig
     from .render import RenderConfig, SnapshotConfig
-    sc = conf["scene"]
-    if sc.get("estimator_type", "occ") != "occ":
-        raise ValueError("only scene.estimator_type=occ is ported")
+    estimator_type(conf)
     fc = conf.get_path("scene.field", {}) or {}
     rc = conf.get_path("scene.renderer_conf", {}) or {}
     kind = fc.get("kind", "hash")
@@ -98,10 +127,9 @@ def scene_configs(conf):
 def build_scene(conf, device: torch.device):
     """The scene of the run: the checkpoint's when ``is_continue`` and it
     exists, else a freshly initialised field (as the JAX runner)."""
-    from .train import NeRFScene, load_checkpoint
-    field_cfg, render_cfg, snap_cfg = scene_configs(conf)
+    from .train import load_checkpoint
     gen = torch.Generator().manual_seed(int(conf.get("seed", 0)))
-    scene = NeRFScene(field_cfg, render_cfg, gen, device, snap_cfg)
+    scene = make_scene(conf, gen, device)
     ckpt = pjoin(exp_dir_of(conf), "checkpoints", "ckpt.npz")
     if conf.get("is_continue", False) and os.path.exists(ckpt):
         scene.load_state_dict(load_checkpoint(ckpt)["scene"])

@@ -20,6 +20,10 @@ checkpoints). One run:
    and rendered through the snapshot, frames as PNGs and, where ``imageio``
    or ``cv2`` can write one, ``video.mp4``.
 
+With ``scene.estimator_type=prop`` the scene is a ``PropNeRFScene``: the
+same steps, its renders through the proposal cascade (it has no
+snapshot to bake), as JAX's runner does.
+
 Checkpoints hold ``scene``, ``sup_pool`` and ``phase`` in the JAX runner's
 layout, so either package resumes the other's run at any phase
 (``is_continue=true``). Images are PNG (the port has no JPEG encoder: the
@@ -45,8 +49,8 @@ from ..inpaint import FakeInpainter, PanoPersFusionInpainter
 from ..pose import CirclePoseSampler, DenseTravelPoseSampler
 from ..priors import (FakeCubeRoomDepthPredictor, FakeCubeRoomNormalPredictor,
                       JointPredictorConfig, PanoJointPredictor)
-from ..train import (NeRFScene, OptimConfig, SupInfoPool, TrainConfig,
-                     load_checkpoint, save_checkpoint)
+from ..train import (OptimConfig, SupInfoPool, TrainConfig, load_checkpoint,
+                     save_checkpoint)
 from ..train.scene import pano_visibility_from_distance
 from ..utils.io import colorize_single_channel_image, write_image, write_video
 from ..utils.metrics import MetricsWriter, phase_timer
@@ -83,6 +87,8 @@ def train_config(tc) -> TrainConfig:
         density_loss_weight=tc.get("density_loss_weight", 0.0),
         geo_optimizer=optim(tc["geo_optimizer"]),
         app_optimizer=optim(tc["app_optimizer"]),
+        **({"prop_optimizer": optim(tc["prop_optimizer"])}
+           if "prop_optimizer" in tc else {}),
         bucket_train=tc.get("bucket_train", True),
         app_sample_stride=tc.get("app_sample_stride", 2),
         geo_sample_stride=tc.get("geo_sample_stride", 1),
@@ -148,11 +154,10 @@ class CoreRunner:
     ``mode=train`` or ``mode=render_dense`` run on one device."""
 
     def __init__(self, conf, device: torch.device):
-        from ..__main__ import exp_dir_of, scene_configs
+        from ..__main__ import exp_dir_of, make_scene
         self.conf = conf
         self.device = torch.device(device)
         seed = int(conf.get("seed", 0))
-        field_cfg, render_cfg, snap_cfg = scene_configs(conf)
         tcfg = train_config(conf["scene"]["train_conf"])
         depth, normal = build_prior_backends(conf)
         self.geo_predictor = PanoJointPredictor(depth, normal,
@@ -167,8 +172,7 @@ class CoreRunner:
         self.writer = MetricsWriter(pjoin(self.exp_dir, "ts_log"))
         self.geo_predictor.writer = self.writer
         gen = torch.Generator().manual_seed(seed)
-        self.scene = NeRFScene(field_cfg, render_cfg, gen, self.device,
-                               snap_cfg, tcfg, self.writer)
+        self.scene = make_scene(conf, gen, self.device, tcfg, self.writer)
         self.scene.vis_dir = pjoin(self.exp_dir, "fit_vis")
         ref_d = self.dataset.ref_distance
         write_image(pjoin(self.exp_dir, "distance_vis.png"),

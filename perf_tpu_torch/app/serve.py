@@ -1,8 +1,11 @@
 """Scene serving: render a trained scene over HTTP (``mode=serve``).
 
 Counterpart of ``perf_tpu/app/serve.py:44-191``. The server owns a
-``NeRFScene`` whose snapshot is baked once; each request renders one frame
-through the snapshot renderer on the scene's device:
+``NeRFScene`` whose snapshot is baked once, or a ``PropNeRFScene``, which
+has no snapshot and renders through its proposal cascade (``/info`` then
+reports ``snapshot_baked: false``; JAX's server raises there, its prop
+scene having no ``snapshot``); each request renders one frame on the
+scene's device:
 
     GET /health                 -> {"status": "ok", ...}
     GET /info                   -> scene + snapshot metadata
@@ -63,7 +66,8 @@ class SceneServer:
         self.started = time.time()
 
     def warmup(self):
-        """Bake the snapshot and render each camera once before serving."""
+        """Render each camera once before serving (the first render bakes
+        the snapshot of an occupancy scene)."""
         for cam in ("pano", "pers"):
             self.render(np.eye(4, dtype=np.float32), cam)
 

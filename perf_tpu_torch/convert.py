@@ -4,8 +4,10 @@
 NumPy arrays (``{"geo": {"table", "mlp": {"w": [...]}}, "app": ...}``,
 weights ``[din, dout]``) and the occupancy grid as a flat uint8 array. A
 table is the brick grid's [L, R, 64 * F] or the hash grid's [L, F, T]
-(feature-major). The port keeps the same tree and layouts, so converting
-is a copy into tensors on the chosen device, and back.
+(feature-major). A ``PropNeRFScene`` adds its proposal fields, a list of
+hash-grid trees (``prop_params``; ``p{i}`` keys in its state dict). The
+port keeps the same trees and layouts, so converting is a copy into
+tensors on the chosen device, and back.
 """
 
 from __future__ import annotations
@@ -36,6 +38,24 @@ def field_params_from_jax(tree, field_cfg, device="cpu") -> dict:
             raise ValueError(f"{head} table {got} does not match the field's "
                              f"grid {type(field_cfg.grid).__name__} {want}")
     return params_from_jax(tree, device)
+
+
+def prop_params_from_jax(tree, prop_cfgs, device="cpu") -> list:
+    """The proposal fields of a ``PropNeRFScene``: JAX's list of
+    ``{"table", "mlp": {"w": [...]}}`` trees, or a state dict's ``{"p0",
+    "p1", ...}`` -> a list of the same trees as float32 tensors on
+    ``device``, refused unless each table has its config's grid shape."""
+    if isinstance(tree, dict):
+        tree = [tree[f"p{i}"] for i in range(len(tree))]
+    if len(tree) != len(prop_cfgs):
+        raise ValueError(f"{len(tree)} proposal fields, expected "
+                         f"{len(prop_cfgs)}")
+    for i, (p, cfg) in enumerate(zip(tree, prop_cfgs)):
+        got, want = tuple(np.shape(p["table"])), cfg.grid.table_shape
+        if got != want:
+            raise ValueError(f"proposal field {i}: table {got}, expected "
+                             f"{want}")
+    return [params_from_jax(p, device) for p in tree]
 
 
 def occ_grid_from_jax(grid, device="cpu") -> torch.Tensor:

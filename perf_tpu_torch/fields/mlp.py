@@ -1,6 +1,8 @@
 """The NGP MLP (bias-free ReLU layers) and the sphere field's VanillaMLP.
 
-Counterpart of ``perf_tpu/fields/mlp.py:31-160``. Params are dicts of
+Counterpart of ``perf_tpu/fields/mlp.py:31-160``: ``ngp_mlp_apply`` in
+float32 (the proposal fields'), ``ngp_mlp_apply_channels`` with JAX's bf16
+rounding points (the NGP heads'). Params are dicts of
 float32 tensors laid out ``[din, dout]`` (``{"w": [...]}`` for the NGP
 MLP, ``{"w": [...], "b": [...]}`` for the VanillaMLP, ``{"v": [...], "g":
 [...], "b": [...]}`` for the weight-normed VanillaMLP of the geometry
@@ -24,6 +26,16 @@ def ngp_mlp_init(generator: torch.Generator, dim_in: int, dim_out: int,
         w = torch.randn((a, b), generator=generator) * math.sqrt(2.0 / a)
         ws.append(w.to(device))
     return {"w": ws}
+
+
+def ngp_mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Float32 forward, ReLU between layers (``ngp_mlp_apply``: no bf16
+    rounding; the proposal fields' MLP)."""
+    ws = params["w"]
+    h = x
+    for w in ws[:-1]:
+        h = torch.relu(h @ w)
+    return h @ ws[-1]
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

@@ -17,18 +17,25 @@ MLPs (the dot products JAX leaves to XLA); ``field_eval_plain`` for CPU
 tensors. The training path queries ray-structured samples through
 ``query_density_ray`` / ``query_rgb_ray``: the grid's encode kernels with
 level strides, then the MLP under autograd.
+
+The proposal estimator's density fields (``NGPDensityFieldConfig``,
+``init_density_field``, ``query_density_field``;
+``perf_tpu/fields/ngp.py:225-261``) are a small hash grid's point encode
+(the ``hash_encode`` kernel on the card) into a float32 10 -> 64 -> 1 MLP
+with ``trunc_exp(raw - 1)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..kernels import cuda
 from ..kernels.brickgrid import BrickGridConfig, level_table
-from ..kernels.hashgrid import HashGridConfig
-from .mlp import ngp_mlp_apply_channels, ngp_mlp_init
+from ..kernels.hashgrid import HashGridConfig, hash_encode, init_hash_table
+from .mlp import ngp_mlp_apply, ngp_mlp_apply_channels, ngp_mlp_init
 
 
 class TruncExp(torch.autograd.Function):
@@ -217,3 +224,49 @@ def field_eval(params: dict, xyz: torch.Tensor,
     if xyz.device.type != "cpu":
         raise ValueError(f"field_eval: unsupported device {xyz.device}")
     return field_eval_plain(params, xyz, cfg)
+
+
+# -- the proposal density field (the prop estimator's) ---------------------
+
+@dataclasses.dataclass(frozen=True)
+class NGPDensityFieldConfig:
+    aabb_min: float = -1.0
+    aabb_max: float = 1.0
+    base_res: int = 16
+    max_res: int = 128
+    n_levels: int = 5
+    log2_table_size: int = 17
+    n_neurons: int = 64
+
+    @property
+    def grid(self) -> HashGridConfig:
+        """The linear hash grid from ``base_res`` to ``max_res``, its growth
+        solved in float64 as the JAX package does."""
+        scale = float(np.exp((np.log(self.max_res) - np.log(self.base_res))
+                             / (self.n_levels - 1)))
+        return HashGridConfig(n_levels=self.n_levels, n_features=2,
+                              log2_table_size=self.log2_table_size,
+                              base_res=self.base_res, per_level_scale=scale)
+
+
+def init_density_field(generator: torch.Generator,
+                       cfg: NGPDensityFieldConfig, device=None) -> dict:
+    """Uniform(-1e-4, 1e-4) table, He-init L*F -> 64 -> 1 MLP."""
+    return {"table": init_hash_table(generator, cfg.grid, device),
+            "mlp": ngp_mlp_init(generator, cfg.grid.out_dim, 1,
+                                cfg.n_neurons, 1, device)}
+
+
+def query_density_field(params: dict, x: torch.Tensor,
+                        cfg: NGPDensityFieldConfig) -> torch.Tensor:
+    """Proposal density at world positions x [..., 3] -> [..., 1]:
+    ``trunc_exp(raw - 1)`` inside the open AABB, 0 outside. The encode is
+    differentiable in the table only (the positions are detached)."""
+    shape = x.shape[:-1]
+    x01 = (x.reshape(-1, 3) - cfg.aabb_min) / (cfg.aabb_max - cfg.aabb_min)
+    sel = ((x01 > 0.0) & (x01 < 1.0)).all(dim=-1)
+    feats = hash_encode(params["table"], x01.detach(), cfg.grid)
+    raw = ngp_mlp_apply(params["mlp"], feats)
+    density = torch.where(sel[:, None], trunc_exp(raw - 1.0),
+                          torch.zeros_like(raw))
+    return density.reshape(*shape, 1)

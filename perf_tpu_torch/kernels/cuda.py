@@ -145,7 +145,7 @@ def build_all() -> dict:
     from ..core import resample  # noqa: F401
     from ..fields import ngp  # noqa: F401
     from ..kernels import brickgrid, gather, hashgrid  # noqa: F401
-    from ..render import occgrid, renderer, snapshot  # noqa: F401
+    from ..render import occgrid, prop, renderer, snapshot  # noqa: F401
     from ..train import scene  # noqa: F401
     started = {}                     # one nvcc per library, all at once
     for k in KERNELS.values():

@@ -119,18 +119,29 @@ def init_hash_table(generator: torch.Generator, cfg: HashGridConfig,
     return table.to(device)
 
 
+def _axis_term(c, axis: int, res: int, table_size: int) -> torch.Tensor:
+    """One axis's share of a corner's row: c * (res + 1)^(2 - axis) where
+    the level's corners fit the table, else c * prime masked to 32 bits.
+    Torch has no wrapping uint32 multiply, so the product runs in int64 and
+    is masked, which is uint32 arithmetic."""
+    if (res + 1) ** 3 <= table_size:
+        return c * (res + 1) ** (2 - axis)
+    return (c.long() * PRIMES[axis]) & _U32
+
+
+def _row(tx, ty, tz, res: int, table_size: int) -> torch.Tensor:
+    """The row of the axis terms: their sum (dense) or their XOR masked to
+    the table (the prime hash)."""
+    if (res + 1) ** 3 <= table_size:
+        return tx + ty + tz
+    return (tx ^ ty ^ tz) & (table_size - 1)
+
+
 def corner_index(cx, cy, cz, res: int, table_size: int) -> torch.Tensor:
     """Integer corner coordinates -> table row: dense when the level's
-    corners fit the table, else the uint32 prime hash masked to it. Torch
-    has no wrapping uint32 multiply, so each product runs in int64 and is
-    masked to 32 bits before the XOR, which is uint32 arithmetic."""
-    if (res + 1) ** 3 <= table_size:
-        r1 = res + 1
-        return cx * (r1 * r1) + cy * r1 + cz
-    cx, cy, cz = cx.long(), cy.long(), cz.long()
-    h = (((cx * PRIMES[0]) & _U32) ^ ((cy * PRIMES[1]) & _U32)
-         ^ ((cz * PRIMES[2]) & _U32))
-    return h & (table_size - 1)
+    corners fit the table, else the uint32 prime hash masked to it."""
+    return _row(*(_axis_term(c, a, res, table_size)
+                  for a, c in enumerate((cx, cy, cz))), res, table_size)
 
 
 INTERPOLATIONS = ("linear", "smoothstep")
@@ -171,19 +182,31 @@ def _level_corners(x, y, z, res: int, table_size: int, smooth: bool,
     weight (A * B) * C with A = wx for an upper corner and 1 - wx for a
     lower one. ``grad`` adds its derivatives ((dA * B) * C, (A * dB) * C,
     (A * B) * dC), dA = -dwx for a lower corner: [(row, weight, (d weight
-    / dx, / dy, / dz))]."""
+    / dx, / dy, / dz))]. Each axis's row terms (``corner_index``'s), 1 - w
+    and -dw are formed once for its lower and upper corner."""
     terms = [_axis_terms(a, res, smooth, grad) for a in (x, y, z)]
+    rows = [tuple(_axis_term(t[0] + o, ax, res, table_size) for o in (0, 1))
+            for ax, t in enumerate(terms)]
+    ws = [(1.0 - t[1], t[1]) for t in terms]
+    dws = [(-t[2], t[2]) for t in terms] if grad else None
     out = []
-    for offs in OFFSETS:
-        idx = corner_index(*(t[0] + o for t, o in zip(terms, offs)), res,
+    # OFFSETS order: x slowest, z fastest; the x-y products are shared by
+    # the two z corners
+    for ox in (0, 1):
+        for oy in (0, 1):
+            a, b = ws[0][ox], ws[1][oy]
+            ab = a * b
+            if grad:
+                dab = (dws[0][ox] * b, a * dws[1][oy])
+            for oz in (0, 1):
+                c = ws[2][oz]
+                idx = _row(rows[0][ox], rows[1][oy], rows[2][oz], res,
                            table_size)
-        a, b, c = (t[1] if o else 1.0 - t[1] for t, o in zip(terms, offs))
-        ab = a * b
-        if not grad:
-            out.append((idx, ab * c))
-            continue
-        da, db, dc = (t[2] if o else -t[2] for t, o in zip(terms, offs))
-        out.append((idx, ab * c, ((da * b) * c, (a * db) * c, ab * dc)))
+                if not grad:
+                    out.append((idx, ab * c))
+                    continue
+                out.append((idx, ab * c, (dab[0] * c, dab[1] * c,
+                                          ab * dws[2][oz])))
     return out
 
 

@@ -11,3 +11,7 @@ from .snapshot import (
     bake_scatter_pack_plain, composite_snapshot, composite_snapshot_plain,
     render_snapshot_image,
 )
+from .prop import (
+    PropRenderConfig, render_rays_prop, prop_loss, sample_from_weights,
+    weights_from_density,
+)

@@ -178,6 +178,9 @@ class TrainConfig:
     density_loss_weight: float = 0.0
     geo_optimizer: OptimConfig = OptimConfig()
     app_optimizer: OptimConfig = OptimConfig()
+    # the proposal fields' schedule (the prop estimator only)
+    prop_optimizer: OptimConfig = OptimConfig(
+        init_lr=1e-4, peak_lr=1e-3, peak_at=0.1, lr_alpha=0.1)
     # two-budget batches (render_rays_bucketed), planned per episode
     bucket_train: bool = True
     # in-window sample strides of the two phases (the march ladder is
@@ -191,7 +194,8 @@ class TrainConfig:
     vis_freq: int = 0
 
 
-def _leaves(head: dict) -> list:
+def leaves(head: dict) -> list:
+    """A head's or proposal field's tensors: table, then MLP weights."""
     return [head["table"]] + list(head["mlp"]["w"])
 
 
@@ -501,7 +505,7 @@ class _PhaseSteps:
         self.frozen = scene.params[frozen_key]
         self.loss_fn = scene._geo_loss if phase == "geo" else scene._app_loss
         self.ocfg = tc.geo_optimizer if phase == "geo" else tc.app_optimizer
-        self.leaves = _leaves(self.train)
+        self.leaves = leaves(self.train)
         for t in self.leaves:
             t.requires_grad_(True)
         self.opt = GuardedAdam(self.leaves)

@@ -261,8 +261,12 @@ def test_cli_field_configs_follow_the_jax_runner():
     # an empty field: the default NGP field, the hash grid at full width
     assert field_of("scene.field={}") == NGPFieldConfig()
     assert NGPFieldConfig().grid == HashGridConfig()
-    with pytest.raises(ValueError, match="estimator_type=occ"):
-        field_of("scene.field.kind=hash", "scene.estimator_type=prop")
+    # the prop estimator takes the same final field; any other raises
+    assert field_of("scene.field.kind=hash",
+                    "scene.estimator_type=prop") == NGPFieldConfig(
+        grid=HashGridConfig())
+    with pytest.raises(ValueError, match="estimator_type='nerfacc'"):
+        field_of("scene.field.kind=hash", "scene.estimator_type=nerfacc")
     # a brick checkpoint does not load into a hash field
     brick = NGPFieldConfig(grid=BrickGridConfig(n_levels=4, log2_bricks=8))
     with pytest.raises(ValueError, match="does not match"):

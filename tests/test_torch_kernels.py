@@ -56,6 +56,7 @@ from perf_tpu_torch.train.scene import (field_prune_occ,
                                         field_prune_occ_plain)
 from perf_tpu_torch.kernels.gather import (onehot_gather, onehot_gather_cuda,
                                            take_gather, take_gather_cuda)
+from perf_tpu_torch.render import prop as prop_k
 from perf_tpu_torch.kernels.hashgrid import (
     HashGridConfig, HashEncode, hash_encode, hash_encode_grad,
     hash_encode_grad_cuda, hash_encode_grad_grad_cuda,
@@ -231,6 +232,12 @@ def test_plain_path_counts_no_launch():
     g_table = torch.zeros((4096, 128), dtype=torch.bfloat16)
     take_gather(g_table, torch.zeros(256, dtype=torch.int32), 128)
     onehot_gather(g_table, torch.zeros(256, dtype=torch.int32), 128)
+    e = torch.sort(torch.rand((4, 9)), dim=1)[0]
+    sig = torch.rand((4, 8), requires_grad=True)
+    w = prop_k.weights_from_density(sig, e, override_last=True)
+    new = prop_k.sample_from_weights(e, w, prop_k.linspace_u(4, 4))
+    prop_k.prop_loss(new, prop_k.weights_from_density(sig[:, :4], new),
+                     [{"edges": e, "weights": w}]).backward()
     assert set(cuda.counts()) == {
         "field_eval", "bake_scatter_pack", "march_windows",
         "march_windows_stratified", "snapshot_composite", "brick_encode",
@@ -240,7 +247,8 @@ def test_plain_path_counts_no_launch():
         "brick_encode_grad", "brick_encode_grad_bwd", "occ_prune",
         "hash_encode", "hash_encode_bwd", "take_gather", "onehot_gather",
         "hash_encode_smooth", "hash_encode_smooth_bwd", "hash_encode_grad",
-        "hash_encode_grad_bwd"}
+        "hash_encode_grad_bwd", "prop_resample", "prop_weights",
+        "prop_weights_bwd", "prop_loss", "prop_loss_bwd"}
     assert all(v == 0 for v in cuda.counts().values())
 
 
@@ -681,3 +689,125 @@ def test_hash_field_serving_and_prune_launch_the_hash_kernel(gpu):
     assert after["occ_prune"] == before["occ_prune"]
     want = field_prune_occ_plain(params["geo"], fc, occ, prev, 64, jitter)
     assert int((pruned != want).sum()) <= 2
+
+
+# -- the proposal estimator (K11, csrc/prop.cu) ----------------------------
+
+def _prop_rows(n: int, m: int, seed: int):
+    """Sorted edges [n, m+1] over [0.01, 2], densities [n, m] with a few
+    peaks, peaked weights [n, m]."""
+    rng = np.random.default_rng(seed)
+    edges = np.sort(rng.uniform(0.01, 2.0, (n, m + 1)), 1).astype(np.float32)
+    sigma = (rng.random((n, m)) ** 4 * rng.uniform(0, 60, (n, 1))).astype(
+        np.float32)
+    w = (rng.random((n, m)) ** 6 * rng.uniform(0, 1, (n, 1))).astype(
+        np.float32)
+    return edges, sigma, w
+
+
+def test_prop_wrappers_refuse_cpu_tensors_and_bad_shapes():
+    """The five K11 wrappers refuse CPU tensors and shapes their kernels
+    do not take, before building anything; the routes on CPU tensors (the
+    plain versions) count no launch."""
+    e, s, w = (torch.from_numpy(a) for a in _prop_rows(4, 8, 0))
+    u = prop_k.linspace_u(4, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        prop_k.sample_from_weights_cuda(e, w, u.contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        prop_k.weights_from_density_cuda(s, e)
+    with pytest.raises(ValueError, match="CUDA"):
+        prop_k.weights_from_density_bwd_cuda(s, e, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        prop_k.prop_loss_cuda(e, w, e, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        prop_k.prop_loss_bwd_cuda(e, w, e, w, torch.ones(4))
+    big = torch.zeros((2, prop_k.MAX_BINS + 1))
+    with pytest.raises(ValueError, match="bins"):
+        prop_k.weights_from_density_cuda(
+            big, torch.zeros((2, prop_k.MAX_BINS + 2)))
+    names = ("prop_resample", "prop_weights", "prop_weights_bwd", "prop_loss",
+             "prop_loss_bwd")
+    before = {k: cuda.counts()[k] for k in names}
+    s.requires_grad_(True)
+    wt = prop_k.weights_from_density(s, e, override_last=True)
+    new = prop_k.sample_from_weights(e, wt, u)
+    final_w = prop_k.weights_from_density(s[:, :5].detach(), new)
+    loss = prop_k.prop_loss(new, final_w, [{"edges": e, "weights": wt}])
+    loss.backward()
+    assert s.grad is not None and (s.grad[:, -1] == 0).all()
+    assert {k: cuda.counts()[k] for k in names} == before
+
+
+def _prop_gpu(seed: int, n: int, m: int, dev):
+    e, s, w = (torch.from_numpy(a).to(dev) for a in _prop_rows(n, m, seed))
+    return e, s, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,k", [(1, 8, 5), (1037, 128, 64), (33, 64, 64),
+                                   (5, 256, 257)])
+def test_prop_resample_kernel_matches_plain(gpu, n, m, k):
+    """Stratified and linspace u: the searched indices equal, the edges
+    equal (the same CDF in XLA's order, the same divisions, no
+    contraction)."""
+    dev = gpu[0]
+    e, _, w = _prop_gpu(n + m, n, m, dev)
+    g = torch.Generator(device=dev).manual_seed(n)
+    for u in (prop_k.stratified_u(torch.rand((n, 1), generator=g, device=dev),
+                             k - 1).contiguous(),
+              prop_k.linspace_u(n, k - 1, dev).contiguous()):
+        before = cuda.counts()["prop_resample"]
+        got, idx = prop_k.sample_from_weights_cuda(e, w, u, return_idx=True)
+        assert cuda.counts()["prop_resample"] == before + 1
+        ref, ref_idx = prop_k.sample_from_weights_plain(e, w, u)
+        assert torch.equal(idx.long(), ref_idx)
+        assert (got - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("override", [True, False])
+@pytest.mark.parametrize("n,m", [(1, 2), (1037, 128), (64, 256)])
+def test_prop_weights_kernels_match_plain(gpu, n, m, override):
+    """w within 1e-6 relative + 2e-7 absolute (expf against torch's exp);
+    the overridden last bin's rounded prefix equal; d sigma within 1e-5
+    relative norm, 0 for an overridden last sigma."""
+    dev = gpu[0]
+    e, s, _ = _prop_gpu(m, n, m, dev)
+    before = cuda.counts()["prop_weights"]
+    got = prop_k.weights_from_density_cuda(s, e, override)
+    assert cuda.counts()["prop_weights"] == before + 1
+    ref = prop_k.weights_from_density_plain(s, e, override)
+    assert bool(((got - ref).abs() <= 1e-6 * ref.abs() + 2e-7).all())
+    g = torch.randn((n, m), generator=torch.Generator(device=dev).manual_seed(
+        m), device=dev)
+    before = cuda.counts()["prop_weights_bwd"]
+    ds = prop_k.weights_from_density_bwd_cuda(s, e, g, override)
+    assert cuda.counts()["prop_weights_bwd"] == before + 1
+    ds_ref = prop_k.weights_from_density_bwd_plain(s, e, g, override)
+    assert (ds - ds_ref).norm().item() <= 1e-5 * ds_ref.norm().item()
+    if override:
+        assert bool((ds[:, -1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,k", [(1, 8, 4), (1037, 128, 64), (77, 64, 64)])
+def test_prop_loss_kernels_match_plain(gpu, n, m, k):
+    """Per-ray sums within 1e-5 relative (the plain sum runs in the same
+    order), d proposal weights within 1e-5 relative norm."""
+    dev = gpu[0]
+    te, _, wp = _prop_gpu(m, n, m, dev)
+    tf, _, wf = _prop_gpu(m + 1, n, k, dev)
+    wf = (wf * 2.0).contiguous()
+    before = cuda.counts()["prop_loss"]
+    got = prop_k.prop_loss_cuda(te, wp, tf, wf)
+    assert cuda.counts()["prop_loss"] == before + 1
+    ref = prop_k.prop_loss_plain(te, wp, tf, wf)
+    assert bool(((got - ref).abs() <= 1e-5 * ref.abs() + 1e-12).all())
+    assert ref.sum().item() > 0
+    g = torch.rand((n,), generator=torch.Generator(device=dev).manual_seed(n),
+                   device=dev)
+    before = cuda.counts()["prop_loss_bwd"]
+    dw = prop_k.prop_loss_bwd_cuda(te, wp, tf, wf, g)
+    assert cuda.counts()["prop_loss_bwd"] == before + 1
+    dw_ref = prop_k.prop_loss_bwd_plain(te, wp, tf, wf, g)
+    assert ((dw - dw_ref).norm() / dw_ref.norm()).item() <= 1e-5
