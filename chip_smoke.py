@@ -75,7 +75,13 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    same inputs at the shapes of its path (and the training kernels also at
    the pinned 8192 rays x 128 samples), and times both, with
    ``F.grid_sample`` beside the resampler and ``table[rows]`` beside the
-   gathers.
+   gathers. The resampler's forward is also held bitwise and timed at the
+   visibility core's own coordinates and at the distillation's view-stack
+   call, the brick encode's backward also at the prop path's final field
+   (8192 rays x 64 samples, stride 1 on every level); a log line gives
+   each of their times beside the one ``PERF.md`` recorded before their
+   redesign, and the step profiles give the watched kernels' share of the
+   device time.
 
 Launch counts are zeroed just before each path (gather, train, serve,
 anchor, hash, sphere: its CLI run and its API run, prop) and read just
@@ -202,6 +208,9 @@ PROP_ANCHORS = 1
 PROP_DENSE = 4
 REFINER_ITERS = 100          # of the refiner's 5000
 FUSION_ITERS = 100           # of the fusion predictors' 1000
+# the times PERF.md recorded before this redesign of the two kernels (H100
+# 80GB HBM3, 700.00 W): printed beside each new time
+WAS_MS = {"bilinear_sample": 0.1929, "brick_encode_bwd": 0.8666}
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 FLOP/s off
 # the tensor cores, bf16 FLOP/s on them
 HBM_BPS = 3.35e12
@@ -274,12 +283,13 @@ def kernel_label(name: str) -> str:
 
 
 def profile_device(fn, reps: int, host_ms_each: float,
-                   unit: str = "frame") -> dict:
+                   unit: str = "frame", watch: tuple = ()) -> dict:
     """Trace ``reps`` warm calls of ``fn`` with ``torch.profiler``: the
     card's busy time per call (union of its kernel and copy intervals), the
     number of device operations (kernels and copies) per call, the busiest
-    kernels, and the device's idle share of an untraced warm call of
-    ``host_ms_each``. Returns nulls when the trace holds no device
+    kernels, the time per call and share of the busy time of each kernel
+    label in ``watch``, and the device's idle share of an untraced warm
+    call of ``host_ms_each``. Returns nulls when the trace holds no device
     events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -315,10 +325,15 @@ def profile_device(fn, reps: int, host_ms_each: float,
     busy_us += cur_t - cur_s
     device_ms = busy_us / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    watched = {k: by_name.get(k, 0.0) / 1e3 / reps for k in watch}
     return {f"{unit}s": reps, f"device_ms_per_{unit}": device_ms,
             "idle_share": 1.0 - device_ms / host_ms_each,
             f"device_ops_per_{unit}": n_kernels / reps,
-            "device_ms_by_kernel": {k: v / 1e3 / reps for k, v in top}}
+            "device_ms_by_kernel": {k: v / 1e3 / reps for k, v in top},
+            **({"watched_ms": watched,
+                "watched_share": {k: v / device_ms
+                                  for k, v in watched.items()}}
+               if watch else {})}
 
 
 def fetch(url: str):
@@ -702,7 +717,10 @@ def warm_steps(runner) -> dict:
                 "launches_per_step": {k: (after[k] - before[k]) / 5
                                       for k in after
                                       if after[k] != before[k]},
-                "profile": profile_device(step, 5, step_ms, unit="step")}
+                "profile": profile_device(
+                    step, 5, step_ms, unit="step",
+                    watch=("brick_bwd_kernel", "brick_fwd_kernel",
+                           "hash_fwd_kernel", "hash_bwd_kernel"))}
     return out
 
 
@@ -737,6 +755,35 @@ def _train_inputs(runner, samples: int | None, seed: int):
             nx.contiguous(), ny.contiguous(), nz.contiguous(), strides)
 
 
+def _brick_bwd_row(table, grid, nx, ny, nz, strides, seed: int) -> dict:
+    """``brick_encode_bwd`` against its plain version (within 1e-6 relative
+    norm) on cotangents from ``seed``, timed."""
+    import torch
+    from perf_tpu_torch.kernels.brickgrid import (brick_points_grad_cuda,
+                                                  brick_points_grad_plain)
+    from perf_tpu_torch.kernels.hashgrid import level_plan
+    n, s = nx.shape
+    total = level_plan(grid, strides, n, s)[1]
+    gen = torch.Generator(device=nx.device).manual_seed(seed)
+    g = torch.randn((total, 2), generator=gen, device=nx.device)
+    b_got = brick_points_grad_cuda(table.shape, nx, ny, nz, grid, strides, g)
+    b_ref = brick_points_grad_plain(table.shape, nx, ny, nz, grid, strides, g)
+    torch.cuda.synchronize()
+    rel = ((b_got - b_ref).norm() / b_ref.norm()).item()
+    return {
+        "shape": [n, s], "strides": list(strides), "points": total,
+        "max_abs_err": (b_got - b_ref).abs().max().item(),
+        "rel_norm_err": rel,
+        "ms": cuda_ms(lambda: brick_points_grad_cuda(
+            table.shape, nx, ny, nz, grid, strides, g), 20),
+        "plain_ms": cuda_ms(lambda: brick_points_grad_plain(
+            table.shape, nx, ny, nz, grid, strides, g), 3),
+        # coordinates and cotangents in, the float32 gradient out; per
+        # point 8 weights of 2 products, 16 products and 16 sums
+        **bound(3 * n * s * 4 + total * 8 + table.numel() * 4,
+                total * 64)}
+
+
 def compare_train_kernels(runner, seed: int) -> dict:
     """Each training kernel against its plain version at the smoke scene's
     geometry-phase shape (8192 rays at the phase budget) and at the pinned
@@ -746,8 +793,7 @@ def compare_train_kernels(runner, seed: int) -> dict:
     import torch
     from perf_tpu_torch.fields import query_density_ray
     from perf_tpu_torch.kernels.brickgrid import (
-        brick_points_cuda, brick_points_grad_cuda, brick_points_grad_plain,
-        brick_points_plain, level_plan)
+        brick_points_cuda, brick_points_plain, level_plan)
     from perf_tpu_torch.render.occgrid import (occ_grid_from_points_cuda,
                                                occ_grid_from_points_plain)
     from perf_tpu_torch.render.renderer import (
@@ -800,27 +846,14 @@ def compare_train_kernels(runner, seed: int) -> dict:
                 table, nx, ny, nz, grid, strides), 3),
             **bound(enc_bytes + total * 8, total * 52)}
 
-        # its backward: the same bf16-rounded contributions, added by float
-        # atomics in an order that changes from run to run
-        gen = torch.Generator(device=scene.device).manual_seed(seed + 1)
-        g = torch.randn((total, 2), generator=gen, device=scene.device)
-        b_got = brick_points_grad_cuda(table.shape, nx, ny, nz, grid,
-                                       strides, g)
-        b_ref = brick_points_grad_plain(table.shape, nx, ny, nz, grid,
-                                        strides, g)
-        torch.cuda.synchronize()
-        rel = ((b_got - b_ref).norm() / b_ref.norm()).item()
-        check(rel <= 1e-6, f"brick_encode_bwd ({tag}): rel {rel}")
-        res["brick_encode_bwd"][tag] = {
-            "shape": [n, s], "points": total,
-            "max_abs_err": (b_got - b_ref).abs().max().item(),
-            "rel_norm_err": rel,
-            "ms": cuda_ms(lambda: brick_points_grad_cuda(
-                table.shape, nx, ny, nz, grid, strides, g), 20),
-            "plain_ms": cuda_ms(lambda: brick_points_grad_plain(
-                table.shape, nx, ny, nz, grid, strides, g), 3),
-            **bound(3 * n * s * 4 + total * 8 + table.numel() * 4,
-                    total * 64)}
+        # its backward: the same bf16-rounded contributions, summed per run
+        # and added by float atomics in an order that changes from run to
+        # run
+        row = _brick_bwd_row(table, grid, nx, ny, nz, strides, seed + 1)
+        check(row["rel_norm_err"] <= 1e-6,
+              f"brick_encode_bwd ({tag}): rel {row['rel_norm_err']}")
+        res["brick_encode_bwd"][tag] = row
+        gen = torch.Generator(device=scene.device).manual_seed(seed + 2)
 
         # the composite: sigma of the trained field at these samples
         with torch.no_grad():
@@ -1155,7 +1188,8 @@ def compare_anchor_kernels(runner, seed: int) -> dict:
                         padding_mode="border", align_corners=False)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
-    check(err <= 1e-6, f"bilinear_sample: {err}")
+    # the same taps, products and sums in JAX's order: bitwise
+    check(err == 0.0, f"bilinear_sample: {err}")
     lib_err = (lib[..., 0].permute(0, 2, 1) - ref).abs().max().item()
     # the yardstick computes the same function, but its pixel coordinate
     # ((2c - 1 + 1) * W - 1) / 2 rounds otherwise at W = 2048: ~1e-4 of a
@@ -1174,7 +1208,9 @@ def compare_anchor_kernels(runner, seed: int) -> dict:
             padding_mode="border", align_corners=False), 20),
         # coords in, samples out, the images once; 4 taps x 2 products and
         # 3 sums, plus 8 coordinate operations
-        **bound(imgs.numel() * 4 + n * 12, n * 19)}
+        **bound(imgs.numel() * 4 + n * 12, n * 19),
+        **_bilinear_path_rows(runner, gen)}
+    del imgs, coords, grid, got, ref, lib
     # backward at the distillation's local depth-bias maps
     jc = runner.geo_predictor.cfg
     n_views = 20 * len(jc.ratios)
@@ -1217,6 +1253,66 @@ def compare_anchor_kernels(runner, seed: int) -> dict:
         # products
         **bound(m * 12 + leaf.numel() * 4, m * 16)}
     return res
+
+
+def _bilinear_path_rows(runner, gen) -> dict:
+    """``bilinear_sample`` forward at two shapes of the anchor path, each
+    bitwise its plain version and timed: ``vis_core``, the visibility
+    core's resample of the registered panos' padded distance stack at the
+    last registered pano's points (``train/sup_pool.py``
+    ``_pano_proj_depths``), and ``views``, the distillation's resample of
+    its view stack [views, gen_res, gen_res, 7] at a step's local batch
+    (``priors/pano_joint.py`` ``_Distill.loss``)."""
+    import torch
+    import torch.nn.functional as F
+    from perf_tpu_torch.core import direction_to_img_coord, gen_pano_rays
+    from perf_tpu_torch.core.resample import (bilinear_sample_cuda,
+                                              bilinear_sample_plain)
+    dev = runner.device
+    pool = runner.sup_pool
+    poses, dmaps = pool.device_pano_maps(dev)
+    info = pool.sup_infos[-1]
+    h, w = info.distance_map.shape[:2]
+    rays = gen_pano_rays(poses[len(pool.sup_infos) - 1], h, w)
+    pts = rays.o + rays.d * torch.from_numpy(
+        info.distance_map.reshape(h, w, 1)).to(dev)
+    # _pano_proj_depths' coordinates
+    rel = pts[None] - poses[:, None, None, :3, 3]
+    local = torch.einsum("pji,phwj->phwi", poses[:, :3, :3], rel)
+    local = local / torch.linalg.norm(local, dim=-1, keepdim=True)
+    coords = direction_to_img_coord(local).reshape(poses.shape[0], -1, 2)
+    jc = runner.geo_predictor.cfg
+    n_views = 20 * len(jc.ratios)
+    views = torch.rand((n_views, jc.gen_res, jc.gen_res, 7), generator=gen,
+                       device=dev)
+    vco = torch.rand((n_views, jc.local_batch, 2), generator=gen, device=dev)
+    out = {}
+    for tag, img, co, ref_grid in (
+            ("vis_core", dmaps.contiguous(), coords.contiguous(), True),
+            ("views", views, vco, False)):
+        got = bilinear_sample_cuda(img, co, "border")
+        ref = bilinear_sample_plain(img, co, "border")
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        check(err == 0.0, f"bilinear_sample ({tag}): {err}")
+        m = co.shape[0] * co.shape[1]
+        row = {"shape": list(img.shape), "samples": m, "max_abs_err": err,
+               "ms": cuda_ms(lambda: bilinear_sample_cuda(img, co, "border"),
+                             20),
+               "plain_ms": cuda_ms(lambda: bilinear_sample_plain(
+                   img, co, "border"), 5),
+               # coords in and samples out; the images' pixels once, at
+               # most the 4 taps a sample reads
+               **bound(min(img.numel(), m * 4 * img.shape[-1]) * 4
+                       + m * (8 + 4 * img.shape[-1]),
+                       m * (8 + 11 * img.shape[-1]))}
+        if ref_grid:
+            grid = (co.flip(-1) * 2.0 - 1.0)[:, :, None, :]
+            row["library_ms"] = cuda_ms(lambda: F.grid_sample(
+                img.permute(0, 3, 1, 2), grid, mode="bilinear",
+                padding_mode="border", align_corners=False), 20)
+        out[tag] = row
+    return out
 
 
 def _prunes(recs: list) -> list:
@@ -1443,13 +1539,23 @@ def sphere_phase(overrides: list):
 def distill_steps(distill, iters: int) -> dict:
     """Warm distillation steps of the second phase, timed (synchronised,
     median of 10) and traced (5 steps)."""
+    from perf_tpu_torch.kernels import cuda
     it = iter(range(1 << 30))
 
     def step():
         distill.step(iters + next(it) % iters, True)
     step_ms = host_ms(step, 10)
+    before = cuda.counts()
+    for _ in range(5):
+        step()
+    after = cuda.counts()
     return {"distill_step_ms": step_ms,
-            "distill_profile": profile_device(step, 5, step_ms, unit="step")}
+            "distill_launches_per_step": {k: (after[k] - before[k]) / 5
+                                          for k in after
+                                          if after[k] != before[k]},
+            "distill_profile": profile_device(
+                step, 5, step_ms, unit="step",
+                watch=("bilinear_fwd_kernel", "bilinear_bwd_kernel"))}
 
 
 def sphere_api_phase(seed: int):
@@ -1872,7 +1978,8 @@ def _prop_inputs(runner, seed: int) -> tuple:
                                   scene.field_cfg,
                                   (1,) * scene.field_cfg.grid.n_levels)
         final = {"edges": edges, "sigma": sigma.contiguous(),
-                 "w": P.weights_from_density(sigma, edges)}
+                 "w": P.weights_from_density(sigma, edges),
+                 "xyz": (px, py, pz)}
     return levels, final
 
 
@@ -2014,10 +2121,23 @@ def compare_prop_kernels(runner, seed: int) -> dict:
                 te, wp, tf, wf, g), 5),
             **bound(nbytes(te, wp, tf, wf, g, dw),
                     n * 2 * m + searches + n * k * 12)}
+    # the brick encode's backward at the final field's samples: 8192 rays x
+    # 64, stride 1 on every level
+    from perf_tpu_torch.fields import normalize_coords
+    scene = runner.scene
+    fc = scene.field_cfg
+    nx, ny, nz, _ = normalize_coords(fc, *final["xyz"])
+    row = _brick_bwd_row(scene.params["geo"]["table"], fc.grid,
+                         nx.contiguous(), ny.contiguous(), nz.contiguous(),
+                         (1,) * fc.grid.n_levels, seed + 5)
+    check(row["rel_norm_err"] <= 1e-6,
+          f"brick_encode_bwd (prop_final): rel {row['rel_norm_err']}")
     # the rows of the kernels line: level 0's shapes (the largest)
-    return {name: {**r["level0"], **{t: v for t, v in r.items()
-                                     if t != "level0"}}
-            for name, r in res.items()}
+    out = {name: {**r["level0"], **{t: v for t, v in r.items()
+                                    if t != "level0"}}
+           for name, r in res.items()}
+    out["brick_encode_bwd_prop_final"] = row
+    return out
 
 
 def run(seed: int):
@@ -2069,6 +2189,7 @@ def run(seed: int):
     log(f"launches on the training path: {launches_train}")
     check(all(launches_train[k] > 0 for k in TRAIN_KERNELS),
           f"a kernel never launched on the training path: {launches_train}")
+    train["launches"] = {k: v for k, v in launches_train.items() if v}
     train.update(warm_steps(runner))
     log(f"train: {json.dumps(train)}")
 
@@ -2279,8 +2400,21 @@ def run(seed: int):
     results.update(compare_sphere_kernels(sphere_runner.geo_predictor.cfg.field,
                                           seed))
     results.update(compare_prop_kernels(prop_runner, seed))
+    results["brick_encode_bwd"]["prop_final"] = results.pop(
+        "brick_encode_bwd_prop_final")
     for name, r in results.items():
         log(f"{name}: {json.dumps(r)}")
+    # the two kernels this run's sources redesigned, beside the times
+    # PERF.md recorded before
+    for name, tags in (("bilinear_sample", (None, "vis_core", "views")),
+                       ("brick_encode_bwd", ("scene", "pinned",
+                                             "prop_final"))):
+        for tag in tags:
+            r = results[name] if tag is None else results[name][tag]
+            log(f"{name}[{tag or 'row'}]: {r['ms']:.5f} ms (was "
+                f"{WAS_MS[name]} at the table's row), bound "
+                f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
+                f"{r.get('library_ms')}")
     kernels = []
     for name in REPLACES:
         r = results[name]
@@ -2312,7 +2446,8 @@ def run(seed: int):
             "replaces": REPLACES[name], "path": path, "launches": counted,
             "max_abs_err": top["max_abs_err"],
             **{k: top[k] for k in ("max_rel_err", "loose_share",
-                                   "rel_norm_err", "last_bin_equal",
+                                   "rel_norm_err", "points", "strides",
+                                   "last_bin_equal",
                                    "last_bin_rounded_rays",
                                    "last_bin_true_prefix_median",
                                    "last_bin_prefix_zero_share",
@@ -2325,7 +2460,8 @@ def run(seed: int):
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top.get("library_ms"),
             **{k: r[k] for k in ("pinned", "readback", "bake", "level1",
-                                 "final") if k in r}})
+                                 "final", "prop_final", "vis_core", "views")
+               if k in r}})
     return {"gather": gather, "train": train, "serve": serve,
             "anchor": anchor, "hash": hashp, "sphere": sphere, "prop": prop,
             "kernels": kernels}

@@ -16,7 +16,10 @@ img [B, H, W, C] with coords [B, ..., 2]. The image gets a gradient (the
 distillation trains its local bias maps through the sampler); the coords
 get none (no caller differentiates them). CUDA tensors launch the
 ``bilinear`` kernels (``kernels/csrc/bilinear.cu``), forward and backward;
-CPU tensors take the plain version under autograd.
+CPU tensors take the plain version under autograd. The kernels index
+inside an image in int32 and take the image from the grid: an image of
+2^31 elements or more, a batch entry of 2^31 / max(C, 2) samples or more
+and more than 65535 images are refused.
 """
 
 from __future__ import annotations
@@ -68,18 +71,36 @@ _BWD = cuda.register(cuda.CudaKernel(
      cuda.I32, cuda.P]))
 
 
+def _check_sizes(b, h, w, c, m):
+    """The kernels index inside an image and a batch entry in int32 and take
+    the image from the grid's second axis."""
+    if h * w * c >= 2 ** 31:
+        raise ValueError(f"bilinear kernel indexes an image in int32: "
+                         f"{h} x {w} x {c} elements")
+    if m * max(c, 2) >= 2 ** 31:
+        raise ValueError(f"bilinear kernel indexes samples in int32: {m}")
+    if b > 65535:
+        raise ValueError(f"bilinear kernel takes at most 65535 images, got {b}")
+
+
+def _aligned(t):
+    """``t`` 8-byte aligned, as the kernels read coords (float2) and C = 2
+    taps (float2): a copy where its storage offset is odd."""
+    return t if t.data_ptr() % 8 == 0 else t.clone()
+
+
 def _check(img, coords):
     b, h, w, c = img.shape
     cuda.check(img, "img", torch.float32)
     cuda.check(coords, "coords", torch.float32, (b, None, 2), img.device)
-    if b * h * w * c >= 2 ** 31:
-        raise ValueError("bilinear kernel indexes images in int32")
+    _check_sizes(b, h, w, c, coords.shape[1])
 
 
 def bilinear_sample_cuda(img: torch.Tensor, coords: torch.Tensor,
                          padding: str) -> torch.Tensor:
     """Kernel forward: img [B, H, W, C], coords [B, M, 2] -> [B, M, C]."""
     _check(img, coords)
+    img, coords = _aligned(img), _aligned(coords)
     b, h, w, c = img.shape
     m = coords.shape[1]
     out = torch.empty((b, m, c), dtype=torch.float32, device=img.device)
@@ -97,6 +118,8 @@ def bilinear_sample_grad_cuda(img_shape, coords: torch.Tensor, padding: str,
     cuda.check(coords, "coords", torch.float32, (b, m, 2))
     grad = grad.contiguous()
     cuda.check(grad, "grad", torch.float32, (b, m, c), coords.device)
+    _check_sizes(b, h, w, c, m)
+    coords = _aligned(coords)
     g_img = torch.zeros(img_shape, dtype=torch.float32, device=coords.device)
     _BWD.launch(grad.data_ptr(), b, h, w, c, coords.data_ptr(), m,
                 MODES[padding], g_img.data_ptr())

@@ -18,6 +18,9 @@ the plain versions here for CPU tensors. The sphere distance field encodes
 all levels at once with the in-cell derivatives of the features
 (``brick_encode_stacked_grad``): the ``brick_encode_grad`` kernels
 (``csrc/brick_encode_grad.cu``), forward and backward, for CUDA tensors.
+The ``brick_encode`` backward sums, per warp of 32 consecutive points, the
+runs of points in one voxel and adds each run's 8 corners with float4
+atomics (the source says why).
 """
 
 from __future__ import annotations
@@ -223,7 +226,12 @@ def brick_points_grad_cuda(table_shape, nx, ny, nz, cfg: BrickGridConfig,
     levels, total = _kernel_plan(cfg, strides, nx, table_shape)
     for name, a in (("nx", nx), ("ny", ny), ("nz", nz)):
         cuda.check(a, name, torch.float32, tuple(nx.shape), dev)
+    if nx.numel() >= 2 ** 31:
+        raise ValueError(f"{nx.numel()} samples: the backward indexes "
+                         "samples in int32")
     grad = grad.contiguous()
+    if grad.data_ptr() % 8:           # the kernel reads a point's pair as float2
+        grad = grad.clone()
     cuda.check(grad, "grad", torch.float32, (total, 2), dev)
     gt = torch.zeros(table_shape, dtype=torch.float32, device=dev)
     _ENCODE_BWD.launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),

@@ -33,7 +33,7 @@ from perf_tpu_torch.render.snapshot import (
     bake_corners, bake_scatter_pack, bake_scatter_pack_plain, bake_snapshot,
     composite_snapshot, composite_snapshot_cuda, composite_snapshot_plain)
 from perf_tpu_torch.kernels.brickgrid import (
-    BrickEncode, brick_points_cuda, brick_points_grad_cuda,
+    BrickEncode, brick_index, brick_points_cuda, brick_points_grad_cuda,
     brick_points_grad_plain, brick_points_plain)
 from perf_tpu_torch.kernels.hashgrid import level_strides
 from perf_tpu_torch.render.occgrid import (occ_grid_from_points,
@@ -89,6 +89,86 @@ HASH_SPHERE = HashGridConfig.sphere_field(fine_res=64, n_levels=4,
                                           log2_table_size=13)
 RENDER = RenderConfig(step=4e-3, occ_res=64, march_coarse=12)
 SNAP = SnapshotConfig(res=48, sample_stride=12, bake_chunk=4096)
+
+
+# -- hard inputs of the brick encode's backward and of the resampler (the
+# card tests below and tests/test_torch_encode_collisions.py) ---------------
+
+BWD_CASES = ("one_brick", "voxel_runs", "boundaries", "zero_cotangents",
+             "hash_alias", "stride1")
+
+
+def aliased_bricks(grid: BrickGridConfig, level: int) -> tuple:
+    """Two bricks of a hashed level whose rows coincide."""
+    nb = grid.level_bricks(level)
+    assert grid.level_hashed(level)
+    b = torch.arange(nb ** 3)
+    bx, by, bz = b // (nb * nb), (b // nb) % nb, b % nb
+    rows = brick_index(bx, by, bz, nb, grid.n_bricks).numpy()
+    _, first, counts = np.unique(rows, return_index=True, return_counts=True)
+    i = int(first[np.argmax(counts > 1)])
+    j = int(np.nonzero(rows == rows[i])[0][1])
+    return tuple((int(bx[k]), int(by[k]), int(bz[k])) for k in (i, j))
+
+
+def brick_bwd_case(name: str):
+    """One hard input of the brick encode's backward on the TINY grid, from
+    a seed: (x, y, z [N, S] float32 in about [0, 1], strides, point
+    cotangents [points, 2] float32, sample cotangents [N, S, L * 2]
+    float32). Samples are monotone along each ray."""
+    grid = TINY.grid
+    rng = np.random.default_rng(40 + BWD_CASES.index(name))
+    fine = grid.level_res(grid.n_levels - 1)
+
+    def rays_in(lo, hi, s):
+        """One ray per row of lo / hi [N, 3]: s sorted samples per axis."""
+        u = np.sort(rng.uniform(size=(lo.shape[0], s, 3)), axis=1)
+        return lo[:, None] + (hi - lo)[:, None] * u
+
+    # the cases share two plan shapes (one compile of each for JAX)
+    if name in ("one_brick", "boundaries", "zero_cotangents"):
+        n, s, strides = 16, 24, (2, 1, 1, 1)
+    else:
+        n, s, strides = 13, 31, (1, 1, 1, 1)
+    if name == "one_brick":        # every ray inside one brick of the finest
+        lo = np.full((n, 3), [15, 21, 27]) / fine + 1e-3
+        pts = rays_in(lo, lo + 3.0 / fine - 2e-3, s)
+    elif name == "voxel_runs":     # each ray inside one voxel of the finest
+        lo = (rng.integers(0, fine, (n, 3)) + 0.1) / fine
+        pts = rays_in(lo, lo + 0.8 / fine, s)
+    elif name == "hash_alias":     # rays alternate between two aliased bricks
+        a, b = aliased_bricks(grid, grid.n_levels - 1)
+        lo = np.array([a if i % 2 == 0 else b for i in range(n)]) * 3.0 / fine
+        pts = rays_in(lo + 1e-3, lo + 3.0 / fine - 1e-3, s)
+    elif name == "stride1":        # scattered rays
+        pts = np.sort(rng.uniform(-0.05, 1.05, (n, s, 3)), axis=1)
+    else:                          # rays of samples 4e-3 apart
+        o = rng.uniform(0.1, 0.9, (n, 1, 3))
+        d = rng.standard_normal((n, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        pts = o + d * (4e-3 * np.arange(s))[None, :, None]
+    x, y, z = (np.ascontiguousarray(pts[..., a], np.float32) for a in range(3))
+    total = sum(s if k == 1 else s // k + 1 for k in strides) * n
+    g = rng.standard_normal((total, 2)).astype(np.float32)
+    gs = rng.standard_normal((n, s, 2 * grid.n_levels)).astype(np.float32)
+    if name == "zero_cotangents":  # 40% of the points add nothing, 10% one
+        r = rng.uniform(size=total)
+        g[r < 0.4] = 0.0
+        one = np.nonzero((r >= 0.4) & (r < 0.5))[0]
+        g[one, rng.integers(0, 2, one.shape[0])] = 0.0
+        gs[rng.uniform(size=(n, s)) < 0.4] = 0.0
+    return x, y, z, strides, g, gs
+
+
+def bilinear_case(c: int, padding: str, seed: int):
+    """img [3, 37, 61, c] and coords [3, 4173, 2] reaching past the image on
+    every side (4173 samples: no multiple of a block's), float32, from a
+    seed; cotangents [3, 4173, c]."""
+    rng = np.random.default_rng(seed + 7 * c + len(padding))
+    img = rng.standard_normal((3, 37, 61, c)).astype(np.float32)
+    coords = rng.uniform(-0.2, 1.2, (3, 4173, 2)).astype(np.float32)
+    cot = rng.standard_normal((3, 4173, c)).astype(np.float32)
+    return img, coords, cot
 
 
 def _rays(n: int, seed: int, device):
@@ -199,6 +279,17 @@ def test_non_wild_entry_points_never_fall_back_to_the_cpu(monkeypatch):
         assert make(device="cpu").device.type == "cpu"
 
 
+def test_bilinear_kernels_refuse_sizes_past_int32():
+    from perf_tpu_torch.core.resample import _check_sizes
+    _check_sizes(65535, 1024, 2048, 7, 2 ** 28 - 1)
+    with pytest.raises(ValueError, match="an image in int32"):
+        _check_sizes(1, 2 ** 16, 2 ** 15, 1, 16)
+    with pytest.raises(ValueError, match="samples in int32"):
+        _check_sizes(1, 8, 8, 3, 2 ** 31 // 3 + 1)
+    with pytest.raises(ValueError, match="at most 65535 images"):
+        _check_sizes(65536, 8, 8, 1, 16)
+
+
 def test_plain_path_counts_no_launch():
     cuda.reset_counts()
     params = params_from_jax(random_field_params(0, TINY))
@@ -259,6 +350,7 @@ def test_importing_the_anchor_slice_never_imports_jax():
             "perf_tpu_torch.core.resample, perf_tpu_torch.kernels.hashgrid, "
             "perf_tpu_torch.kernels.gather, "
             "perf_tpu_torch.tools.bench_pallas_encode, "
+            "perf_tpu_torch.tools.bilinear_variants, "
             "perf_tpu_torch.priors.pano_refiner, "
             "perf_tpu_torch.priors.pano_fusion, perf_tpu_torch.data.dataset; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -440,28 +532,90 @@ def test_occ_grid_kernel_is_bitwise_plain(gpu):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("padding", ["border", "wrap_x", "zeros"])
-def test_bilinear_kernels_match_plain(gpu, padding):
+@pytest.mark.parametrize("c", [1, 2, 3, 7, 5, "2 misaligned"])
+def test_bilinear_kernels_match_plain(gpu, c, padding):
+    """The forward bitwise and the backward within 1e-6 at every channel
+    count the main path passes (1, 2, 3, 7), one the generic instantiation
+    takes (5), and C = 2 on an image and coords that are not 8-byte
+    aligned; B > 1, a sample count no block divides, coords past the
+    image."""
     dev = gpu[0]
-    rng = np.random.default_rng(9)
-    img = torch.from_numpy(rng.normal(size=(3, 17, 29, 5)).astype(
-        np.float32)).to(dev)
-    coords = torch.from_numpy(rng.uniform(-0.1, 1.1, (3, 1001, 2)).astype(
-        np.float32)).to(dev)
-    before = cuda.counts()
-    got = bilinear_sample(img, coords, padding)
-    assert cuda.counts()["bilinear_sample"] == before["bilinear_sample"] + 1
+    nc = 2 if c == "2 misaligned" else c
+    img_np, coords_np, cot_np = bilinear_case(nc, padding, 11)
+    img = torch.from_numpy(img_np).to(dev)
+    coords = torch.from_numpy(coords_np).to(dev)
+    if c == "2 misaligned":
+        def shifted(t):
+            store = torch.empty(t.numel() + 1, device=dev)
+            out = store[1:].view(t.shape)
+            out.copy_(t)
+            assert out.data_ptr() % 8 == 4
+            return out
+        img, coords = shifted(img), shifted(coords)
+    before = cuda.counts()["bilinear_sample"]
+    got = bilinear_sample_cuda(img, coords, padding)
+    assert cuda.counts()["bilinear_sample"] == before + 1
     ref = bilinear_sample_plain(img, coords, padding)
-    # the same taps and products in the same order: float32, bitwise but
-    # for the compiler's freedom in the sum (none: __fadd_rn)
-    assert (got - ref).abs().max().item() <= 1e-6
-    g = torch.from_numpy(rng.normal(size=(3, 1001, 5)).astype(
-        np.float32)).to(dev)
-    gi = bilinear_sample_grad_cuda(img.shape, coords, padding, g)
+    # the same taps, products and sums in JAX's order: bitwise
+    assert torch.equal(got, ref)
+    cot = torch.from_numpy(cot_np).to(dev)
+    gi = bilinear_sample_grad_cuda(tuple(img.shape), coords, padding, cot)
     leaf = img.clone().requires_grad_(True)
     (gi_ref,) = torch.autograd.grad(bilinear_sample_plain(leaf, coords,
-                                                          padding), leaf, g)
+                                                          padding), leaf, cot)
     # float atomics add the same products in an order that changes
     assert ((gi - gi_ref).abs().max() / gi_ref.abs().max()).item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["border", "wrap_x"])
+def test_bilinear_sample_entry_point_launches_both_kernels(gpu, padding):
+    """``bilinear_sample`` on card tensors (a batch, coords [B, ..., 2], an
+    image that is not 8-byte aligned) launches the forward and, under
+    autograd, the backward kernel once each, with the kernels' results."""
+    dev = gpu[0]
+    img_np, coords_np, cot_np = bilinear_case(2, padding, 12)
+    store = torch.empty(img_np.size + 1, device=dev)
+    img = store[1:].view(img_np.shape)
+    img.copy_(torch.from_numpy(img_np))
+    assert img.data_ptr() % 8 == 4
+    img.requires_grad_(True)
+    coords = torch.from_numpy(coords_np).to(dev)
+    cot = torch.from_numpy(cot_np).to(dev)
+    b, m = coords.shape[:2]
+    before = cuda.counts()
+    out = bilinear_sample(img, coords.view(b, 1, m, 2), padding)
+    (out * cot.view(out.shape)).sum().backward()
+    after = cuda.counts()
+    assert after["bilinear_sample"] == before["bilinear_sample"] + 1
+    assert after["bilinear_sample_bwd"] == before["bilinear_sample_bwd"] + 1
+    assert torch.equal(out.view(b, m, -1),
+                       bilinear_sample_plain(img.detach(), coords, padding))
+    gi_ref = bilinear_sample_grad_cuda(tuple(img.shape), coords, padding,
+                                       cot)
+    assert ((img.grad - gi_ref).abs().max() / gi_ref.abs().max()).item() \
+        <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_brick_encode_bwd_kernel_matches_plain_on_hard_plans(gpu, case):
+    """Long runs of one key (points of many rays in one brick, a ray's
+    samples in one voxel), ray and level boundaries inside a warp, zero
+    cotangents among non-zero ones, two bricks the hash puts in one row,
+    an all-stride-1 plan, totals no multiple of 32."""
+    dev = gpu[0]
+    x, y, z, strides, g, _ = brick_bwd_case(case)
+    x, y, z, g = (torch.from_numpy(a).to(dev) for a in (x, y, z, g))
+    shape = TINY.grid.table_shape
+    before = cuda.counts()["brick_encode_bwd"]
+    gt = brick_points_grad_cuda(shape, x, y, z, TINY.grid, strides, g)
+    assert cuda.counts()["brick_encode_bwd"] == before + 1
+    ref = brick_points_grad_plain(shape, x, y, z, TINY.grid, strides, g)
+    assert ref.norm().item() > 0
+    # the same bf16-rounded contributions, summed in float32 in another
+    # order (per group of equal corners, then by float atomics)
+    assert ((gt - ref).norm() / ref.norm()).item() <= 1e-6
 
 
 @pytest.mark.cuda
