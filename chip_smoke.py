@@ -77,11 +77,20 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    ``F.grid_sample`` beside the resampler and ``table[rows]`` beside the
    gathers. The resampler's forward is also held bitwise and timed at the
    visibility core's own coordinates and at the distillation's view-stack
-   call, the brick encode's backward also at the prop path's final field
-   (8192 rays x 64 samples, stride 1 on every level); a log line gives
-   each of their times beside the one ``PERF.md`` recorded before their
-   redesign, and the step profiles give the watched kernels' share of the
-   device time.
+   call, the brick encode forward and backward also at the prop path's
+   final field (8192 rays x 64 samples, stride 1 on every level), the hash
+   encode forward also in the point form at the level-0 proposal field's
+   points (1,048,576 points on 5 levels: the row stores of an odd level
+   count); the
+   encodes' forwards write the lerped, level-concatenated features, and
+   the PyTorch glue they absorbed (each level's lerp and the concatenation,
+   or the point form's permute) is timed beside them. A log line gives
+   each redesigned kernel's time beside the one ``PERF.md`` recorded
+   before its redesign. The step profiles give the watched kernels'
+   (the encodes' and the resampler's) time and share of a step's device
+   time, and, for the encodes, the shapes of their launches inside the
+   steps (recorded by wrapping the encode wrappers in the smoke) and the
+   bound at those shapes beside the time.
 
 Launch counts are zeroed just before each path (gather, train, serve,
 anchor, hash, sphere: its CLI run and its API run, prop) and read just
@@ -122,13 +131,15 @@ ANCHORS = 2
 VIS_FREQ = 500
 DENSE_POSES = 12
 CSRC = "perf_tpu_torch/kernels/csrc/"
-# the TPU kernel each entry replaces (file:line of the JAX function)
+# the TPU kernel each entry replaces (file:line of the JAX function; the
+# encodes' forwards: the ray form with its lerp and stack, or the point
+# form)
 REPLACES = {
     "field_eval": "perf_tpu/kernels/brickgrid.py:152",
     "bake_scatter_pack": "perf_tpu/render/snapshot.py:118",
     "march_windows": "perf_tpu/render/renderer.py:255",
     "snapshot_composite": "perf_tpu/render/snapshot.py:311",
-    "brick_encode": "perf_tpu/kernels/brickgrid.py:152",
+    "brick_encode": "perf_tpu/kernels/brickgrid.py:228",
     "brick_encode_bwd": "perf_tpu/kernels/brickgrid.py:181",
     "march_windows_stratified": "perf_tpu/render/renderer.py:255",
     "count_windows": "perf_tpu/render/renderer.py:163",
@@ -142,9 +153,9 @@ REPLACES = {
     "bilinear_sample_bwd": "perf_tpu/core/resample.py:28",
     "take_gather": "tools/bench_pallas_encode.py:53",
     "onehot_gather": "tools/bench_pallas_encode.py:80",
-    "hash_encode": "perf_tpu/kernels/hashgrid.py:104",
+    "hash_encode": "perf_tpu/kernels/hashgrid.py:180",
     "hash_encode_bwd": "perf_tpu/kernels/hashgrid.py:104",
-    "hash_encode_smooth": "perf_tpu/kernels/hashgrid.py:104",
+    "hash_encode_smooth": "perf_tpu/kernels/hashgrid.py:128",
     "hash_encode_smooth_bwd": "perf_tpu/kernels/hashgrid.py:104",
     "hash_encode_grad": "perf_tpu/fields/sphere_field.py:144",
     "hash_encode_grad_bwd": "perf_tpu/fields/sphere_field.py:144",
@@ -208,9 +219,18 @@ PROP_ANCHORS = 1
 PROP_DENSE = 4
 REFINER_ITERS = 100          # of the refiner's 5000
 FUSION_ITERS = 100           # of the fusion predictors' 1000
-# the times PERF.md recorded before this redesign of the two kernels (H100
-# 80GB HBM3, 700.00 W): printed beside each new time
-WAS_MS = {"bilinear_sample": 0.1929, "brick_encode_bwd": 0.8666}
+# the times PERF.md recorded at each redesigned kernel's row before its
+# redesign (H100 80GB HBM3, 700.00 W): printed beside each new time
+WAS_MS = {"bilinear_sample": 0.1929, "brick_encode_bwd": 0.8666,
+          "hash_encode": 0.4809, "hash_encode_smooth": 0.3809,
+          "brick_encode": 0.08582}
+# the encode wrappers whose launches the step profiles record, and the
+# label of the kernel each launches in a trace
+ENCODE_WRAPPERS = {
+    ("hashgrid", "hash_encode_ray_cuda"): "hash_ray_fwd_kernel",
+    ("hashgrid", "hash_points_grad_cuda"): "hash_bwd_kernel",
+    ("brickgrid", "brick_encode_ray_cuda"): "brick_ray_fwd_kernel",
+    ("brickgrid", "brick_points_grad_cuda"): "brick_bwd_kernel"}
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 FLOP/s off
 # the tensor cores, bf16 FLOP/s on them
 HBM_BPS = 3.35e12
@@ -235,6 +255,96 @@ def bound(nbytes: float, flops: float, bf16_flops: float = 0) -> dict:
     t_f = max(flops / F32_FLOPS, bf16_flops / BF16_FLOPS) * 1e3
     return {"bound_ms": max(t_b, t_f),
             "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+def encode_bound(grid, n: int, s: int, strides: tuple,
+                 backward: bool = False) -> dict:
+    """The bound of a ray-form encode of [n, s] samples on a brick or hash
+    grid (``grid.fused_field``: brick). Forward: the coordinates once, each
+    level's corner rows once up to the rows the level holds, the finished
+    [n, s, L * F] float32 features out; per coarse point the operations to
+    locate it and weight and sum its corners, per strided output value 3
+    for its lerp. Backward: the coordinates and the coarse cotangents in,
+    the float32 table gradient out."""
+    from perf_tpu_torch.kernels.hashgrid import level_plan
+    plan, total = level_plan(grid, strides, n, s)
+    coords = 3 * n * s * 4
+    brick = grid.fused_field
+    if backward:
+        table = (grid.n_levels * grid.n_bricks * 128 if brick
+                 else grid.n_levels * 2 * grid.table_size) * 4
+        return bound(coords + total * 8 + table, total * (64 if brick else 50))
+    if brick:
+        # a point reads 8 corners x 2 float32 features (64 B) of one 512 B
+        # row of the parameter
+        read = sum(min(n * npts * 64, min(look ** 3, grid.n_bricks) * 512)
+                   for _, look, _, _, npts, _ in plan)
+        ops = total * 52
+    else:
+        # 8 corners of 2 float32 features a point, at most the rows a level
+        # can address: (res + 1)^3 dense, T hashed
+        read = sum(min(n * npts * 8, grid.table_size if hashed
+                       else look ** 3) * 8
+                   for _, look, hashed, _, npts, _ in plan)
+        ops = total * (78 if grid.interpolation == "smoothstep" else 66)
+    lerped = sum(n * s * 2 * 3 for *_, k, _, _ in plan if k > 1)
+    return bound(coords + read + n * s * grid.out_dim * 4, ops + lerped)
+
+
+def glue_ms(plan, n: int, s: int, dev) -> float:
+    """Device time of the PyTorch glue the forward kernels absorbed, on
+    random coarse features [points, 2] of ``plan``: the lerp of each level
+    and the concatenation (the ray form), or the level-major to
+    point-major permute (the point form, s = 1)."""
+    import torch
+    from perf_tpu_torch.kernels.hashgrid import lerp_levels
+    flat = torch.randn((n * sum(row[4] for row in plan), 2), device=dev)
+    if s == 1:
+        return cuda_ms(lambda: flat.reshape(len(plan), n, 2).permute(
+            1, 0, 2).reshape(n, 2 * len(plan)), 20)
+    return cuda_ms(lambda: lerp_levels(flat, plan, n, s), 20)
+
+
+class EncodeRecorder:
+    """Records, inside ``with``, the shapes of every call of the encode
+    wrappers of ENCODE_WRAPPERS (the smoke swaps the module attributes the
+    autograd Functions call; the package has no knob for it): per kernel
+    label, its launches and the sum of their bounds."""
+
+    def __enter__(self):
+        import importlib
+        self.calls, self._saved = {}, []
+        for (mod_name, fn_name), label in ENCODE_WRAPPERS.items():
+            mod = importlib.import_module(f"perf_tpu_torch.kernels.{mod_name}")
+            orig = getattr(mod, fn_name)
+            self._saved.append((mod, fn_name, orig))
+
+            def wrapped(*args, orig=orig, label=label):
+                nx, grid, strides = args[1], args[4], args[5]
+                key = (label, tuple(nx.shape), tuple(strides), grid)
+                self.calls[key] = self.calls.get(key, 0) + 1
+                return orig(*args)
+            setattr(mod, fn_name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, orig in self._saved:
+            setattr(mod, fn_name, orig)
+
+    def per_label(self, steps: int) -> dict:
+        """label -> launches a step, bound ms a step and the shapes
+        ([n, s], strides, launches a step) it launched at."""
+        out = {}
+        for (label, (n, s), strides, grid), count in self.calls.items():
+            b = encode_bound(grid, n, s, strides,
+                             backward=label.endswith("bwd_kernel"))["bound_ms"]
+            rec = out.setdefault(label, {"launches_per_step": 0.0,
+                                         "bound_ms_per_step": 0.0,
+                                         "shapes": []})
+            rec["launches_per_step"] += count / steps
+            rec["bound_ms_per_step"] += b * count / steps
+            rec["shapes"].append([[n, s], list(strides), count / steps])
+        return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -709,18 +819,24 @@ def warm_steps(runner) -> dict:
                 steps.step(next(it) % n_iters)
             step_ms = host_ms(step, 10)
             before = cuda.counts()
-            for _ in range(5):
-                step()
+            with EncodeRecorder() as rec:
+                for _ in range(5):
+                    step()
             after = cuda.counts()
+            encodes = rec.per_label(5)
+            profile = profile_device(step, 5, step_ms, unit="step",
+                                     watch=tuple(ENCODE_WRAPPERS.values()))
+            for label, r in encodes.items():
+                r["ms_per_step"] = (profile.get("watched_ms") or {}).get(label)
+                log(f"{phase} step, {label}: {r['ms_per_step']} ms a step "
+                    f"over {r['launches_per_step']} launches, in-step bound "
+                    f"{r['bound_ms_per_step']:.6f} ms")
             out[phase] = {
                 "step_ms": step_ms,
                 "launches_per_step": {k: (after[k] - before[k]) / 5
                                       for k in after
                                       if after[k] != before[k]},
-                "profile": profile_device(
-                    step, 5, step_ms, unit="step",
-                    watch=("brick_bwd_kernel", "brick_fwd_kernel",
-                           "hash_fwd_kernel", "hash_bwd_kernel"))}
+                "profile": profile, "encodes": encodes}
     return out
 
 
@@ -784,6 +900,60 @@ def _brick_bwd_row(table, grid, nx, ny, nz, strides, seed: int) -> dict:
                 total * 64)}
 
 
+def _brick_fwd_row(table, grid, nx, ny, nz, strides) -> dict:
+    """``brick_encode``'s forward, the lerped, level-concatenated [N, S,
+    L * F] features, against its plain version (within 1e-6), timed, with
+    the glue it absorbed timed beside it."""
+    import torch
+    from perf_tpu_torch.kernels.brickgrid import (brick_encode_ray_cuda,
+                                                  brick_encode_ray_plain)
+    from perf_tpu_torch.kernels.hashgrid import level_plan
+    n, s = nx.shape
+    plan, total = level_plan(grid, strides, n, s)
+    got = brick_encode_ray_cuda(table, nx, ny, nz, grid, strides)
+    ref = brick_encode_ray_plain(table, nx, ny, nz, grid, strides)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    check(err <= 1e-6 * max(1.0, ref.abs().max().item()),
+          f"brick_encode ({n} x {s}): {err}")
+    return {
+        "shape": [n, s], "strides": list(strides), "points": total,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: brick_encode_ray_cuda(table, nx, ny, nz, grid,
+                                                    strides), 20),
+        "plain_ms": cuda_ms(lambda: brick_encode_ray_plain(
+            table, nx, ny, nz, grid, strides), 3),
+        "glue_ms": glue_ms(plan, n, s, nx.device),
+        **encode_bound(grid, n, s, strides)}
+
+
+def _hash_fwd_row(table, grid, nx, ny, nz, strides) -> dict:
+    """``hash_encode``'s forward (linear), the lerped, level-concatenated
+    [N, S, L * F] features, against its plain version bitwise (the same
+    corners, weights, sums and lerp in the same order), timed, with the
+    glue it absorbed timed beside it."""
+    import torch
+    from perf_tpu_torch.kernels.hashgrid import (hash_encode_ray_cuda,
+                                                 hash_encode_ray_plain,
+                                                 level_plan)
+    n, s = nx.shape
+    plan, total = level_plan(grid, strides, n, s)
+    got = hash_encode_ray_cuda(table, nx, ny, nz, grid, strides)
+    ref = hash_encode_ray_plain(table, nx, ny, nz, grid, strides)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"hash_encode ({n} x {s}): "
+          f"{(got - ref).abs().max().item()}")
+    return {
+        "shape": [n, s], "strides": list(strides), "points": total,
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: hash_encode_ray_cuda(table, nx, ny, nz, grid,
+                                                   strides), 20),
+        "plain_ms": cuda_ms(lambda: hash_encode_ray_plain(
+            table, nx, ny, nz, grid, strides), 3),
+        "glue_ms": glue_ms(plan, n, s, nx.device),
+        **encode_bound(grid, n, s, strides)}
+
+
 def compare_train_kernels(runner, seed: int) -> dict:
     """Each training kernel against its plain version at the smoke scene's
     geometry-phase shape (8192 rays at the phase budget) and at the pinned
@@ -792,8 +962,6 @@ def compare_train_kernels(runner, seed: int) -> dict:
     import numpy as np
     import torch
     from perf_tpu_torch.fields import query_density_ray
-    from perf_tpu_torch.kernels.brickgrid import (
-        brick_points_cuda, brick_points_plain, level_plan)
     from perf_tpu_torch.render.occgrid import (occ_grid_from_points_cuda,
                                                occ_grid_from_points_plain)
     from perf_tpu_torch.render.renderer import (
@@ -803,7 +971,6 @@ def compare_train_kernels(runner, seed: int) -> dict:
     scene = runner.scene
     grid = scene.field_cfg.grid
     table = scene.params["geo"]["table"]
-    table_bf16_bytes = table.numel() * 2
     res = {k: {} for k in ("brick_encode", "brick_encode_bwd",
                            "march_windows_stratified", "shade_composite",
                            "shade_composite_bwd")}
@@ -829,22 +996,9 @@ def compare_train_kernels(runner, seed: int) -> dict:
             **bound(n * (28 + 5 * ms + 8 * k + 4), 0)}
 
         # brick encode forward: the same 8 bf16 corners, float32 sums in
-        # another order
-        plan, total = level_plan(grid, strides, n, s)
-        f_got = brick_points_cuda(table, nx, ny, nz, grid, strides)
-        f_ref = brick_points_plain(table, nx, ny, nz, grid, strides)
-        torch.cuda.synchronize()
-        err = (f_got - f_ref).abs().max().item()
-        check(err <= 1e-6 * max(1.0, f_ref.abs().max().item()),
-              f"brick_encode ({tag}): {err}")
-        enc_bytes = 3 * n * s * 4 + min(table_bf16_bytes, total * 32)
-        res["brick_encode"][tag] = {
-            "shape": [n, s], "points": total, "max_abs_err": err,
-            "ms": cuda_ms(lambda: brick_points_cuda(table, nx, ny, nz, grid,
-                                                    strides), 20),
-            "plain_ms": cuda_ms(lambda: brick_points_plain(
-                table, nx, ny, nz, grid, strides), 3),
-            **bound(enc_bytes + total * 8, total * 52)}
+        # another order, the same lerp
+        res["brick_encode"][tag] = _brick_fwd_row(table, grid, nx, ny, nz,
+                                                  strides)
 
         # its backward: the same bf16-rounded contributions, summed per run
         # and added by float atomics in an order that changes from run to
@@ -1383,49 +1537,27 @@ def hash_phase(train_overrides: list, serve_overrides: list):
 
 
 def compare_hash_kernels(runner, served, seed: int) -> dict:
-    """The hash encode forward and backward against their plain versions at
-    the hash path's geometry-phase shape (8192 rays at the phase budget),
-    at the pinned 8192 x 128, and in the point form at a bake chunk of the
-    served scene's corners."""
+    """The hash encode forward (the lerped, level-concatenated features)
+    and backward against their plain versions at the hash path's
+    geometry-phase shape (8192 rays at the phase budget), at the pinned
+    8192 x 128, and in the point form at a bake chunk of the served scene's
+    corners."""
     import torch
     from perf_tpu_torch.fields import normalize_coords
     from perf_tpu_torch.kernels.hashgrid import (
-        hash_points_cuda, hash_points_grad_cuda, hash_points_grad_plain,
-        hash_points_plain, level_plan)
+        hash_points_grad_cuda, hash_points_grad_plain, level_plan)
     from perf_tpu_torch.render.snapshot import bake_corners, corner_points
     scene = runner.scene
     grid = scene.field_cfg.grid
     table = scene.params["geo"]["table"]
-    table_bytes = table.numel() * 4
     gen = torch.Generator(device=scene.device).manual_seed(seed + 2)
     res = {"hash_encode": {}, "hash_encode_bwd": {}}
 
     def measure(tag, nx, ny, nz, strides, backward: bool):
         n, s = nx.shape
-        plan, total = level_plan(grid, strides, n, s)
-        # per level its 8 corners' rows of F float32 features a point, at
-        # most the rows it can address: (res + 1)^3 dense, T hashed
-        row = grid.n_features * 4
-        table_read = sum(min(n * npts * 8, grid.table_size if hashed
-                             else look ** 3) * row
-                         for _, look, hashed, _, npts, _ in plan)
-        got = hash_points_cuda(table, nx, ny, nz, grid, strides)
-        ref = hash_points_plain(table, nx, ny, nz, grid, strides)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        # the same corners, weights and sums in the same order
-        check(err <= 1e-6 * max(1.0, ref.abs().max().item()),
-              f"hash_encode ({tag}): {err}")
-        coord_bytes = 3 * n * s * 4
-        res["hash_encode"][tag] = {
-            "shape": [n, s], "points": total, "max_abs_err": err,
-            "ms": cuda_ms(lambda: hash_points_cuda(table, nx, ny, nz, grid,
-                                                   strides), 20),
-            "plain_ms": cuda_ms(lambda: hash_points_plain(
-                table, nx, ny, nz, grid, strides), 3),
-            # coordinates once, the corners' rows, 8 B out; per point 18
-            # operations to locate it and 8 x 6 to weight and sum its corners
-            **bound(coord_bytes + table_read + total * 8, total * 66)}
+        _, total = level_plan(grid, strides, n, s)
+        res["hash_encode"][tag] = _hash_fwd_row(table, grid, nx, ny, nz,
+                                                strides)
         if not backward:
             return
         # bf16-valued cotangents, as the field delivers them
@@ -1448,9 +1580,9 @@ def compare_hash_kernels(runner, served, seed: int) -> dict:
                 table.shape, nx, ny, nz, grid, strides, g), 20),
             "plain_ms": cuda_ms(lambda: hash_points_grad_plain(
                 table.shape, nx, ny, nz, grid, strides, g), 3),
-            # coordinates and cotangents in, the float32 gradient out; per
-            # point 18 operations to locate it, 8 x 4 to weight its corners
-            **bound(coord_bytes + total * 8 + table_bytes, total * 50)}
+            # per point 18 operations to locate it, 8 x 4 to weight its
+            # corners
+            **encode_bound(grid, n, s, strides, backward=True)}
 
     for tag, samples in (("scene", None), ("pinned", PINNED[1])):
         *_, nx, ny, nz, strides = _train_inputs(runner, samples, seed)
@@ -1697,8 +1829,9 @@ def compare_sphere_kernels(joint_field, seed: int) -> dict:
     import torch
     from perf_tpu_torch.kernels.hashgrid import (
         HashGridConfig, hash_encode_grad_cuda, hash_encode_grad_grad_cuda,
-        hash_encode_grad_grad_plain, hash_encode_grad_plain, hash_points_cuda,
-        hash_points_grad_cuda, hash_points_grad_plain, hash_points_plain)
+        hash_encode_grad_grad_plain, hash_encode_grad_plain,
+        hash_encode_ray_cuda, hash_encode_ray_plain, hash_points_grad_cuda,
+        hash_points_grad_plain, level_plan)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
 
@@ -1731,28 +1864,26 @@ def compare_sphere_kernels(joint_field, seed: int) -> dict:
     strides = (1,) * grid.n_levels
     n = x.shape[0]
     total = n * grid.n_levels
-    got = hash_points_cuda(table, *coords, grid, strides)
-    ref = hash_points_plain(table, *coords, grid, strides)
-    g = torch.randn(got.shape, generator=gen, device=dev)
+    got = hash_encode_ray_cuda(table, *coords, grid, strides)
+    ref = hash_encode_ray_plain(table, *coords, grid, strides)
+    g = torch.randn((total, 2), generator=gen, device=dev)
     b_got = hash_points_grad_cuda(table.shape, *coords, grid, strides, g)
     b_ref = hash_points_grad_plain(table.shape, *coords, grid, strides, g)
     torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
     # the same corners, smoothstep weights and sums in the same order
-    check(err <= 1e-6, f"hash_encode_smooth: {err}")
+    check(torch.equal(got, ref), f"hash_encode_smooth: "
+          f"{(got - ref).abs().max().item()}")
     rel = ((b_got - b_ref).norm() / b_ref.norm()).item()
     # the same float32 contributions, added by float atomics
     check(rel <= 1e-6, f"hash_encode_smooth_bwd: rel {rel}")
     res["hash_encode_smooth"] = {
-        "points": n, "levels": grid.n_levels, "max_abs_err": err,
-        "ms": cuda_ms(lambda: hash_points_cuda(table, *coords, grid,
-                                               strides), 20),
-        "plain_ms": cuda_ms(lambda: hash_points_plain(table, *coords, grid,
-                                                      strides), 3),
-        # coordinates once, the corners' rows, 8 B out per (point, level);
-        # per (point, level) ~30 operations to locate it (smoothstep) and
-        # 8 x 6 to weight and sum its corners
-        **bound(n * 12 + table_read(grid, n) + total * 8, total * 78)}
+        "points": n, "levels": grid.n_levels, "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: hash_encode_ray_cuda(table, *coords, grid,
+                                                   strides), 20),
+        "plain_ms": cuda_ms(lambda: hash_encode_ray_plain(
+            table, *coords, grid, strides), 3),
+        "glue_ms": glue_ms(level_plan(grid, strides, n, 1)[0], n, 1, dev),
+        **encode_bound(grid, n, 1, strides)}
     res["hash_encode_smooth_bwd"] = {
         "points": n, "levels": grid.n_levels,
         "max_abs_err": (b_got - b_ref).abs().max().item(),
@@ -1942,8 +2073,8 @@ def prop_phase(train_overrides: list, serve_overrides: list):
 def _prop_inputs(runner, seed: int) -> tuple:
     """A training step's cascade at the path's shapes (8192 pool rays,
     128 -> 64 -> 64), through the kernels, without gradients: per proposal
-    level its edges, densities, weights and u; the final edges, densities
-    and weights."""
+    level its edges, world points, densities, weights and u; the final
+    edges, densities and weights."""
     import numpy as np
     import torch
     from perf_tpu_torch.fields.ngp import query_density_field, query_density_ray
@@ -1970,7 +2101,8 @@ def _prop_inputs(runner, seed: int) -> tuple:
             sigma = query_density_field(pp, pts, pc)[..., 0].contiguous()
             w = P.weights_from_density(sigma, edges, override_last=True)
             u = P.stratified_u(draws["u"][lvl], counts[lvl]).contiguous()
-            levels.append({"edges": edges, "sigma": sigma, "w": w, "u": u})
+            levels.append({"edges": edges, "sigma": sigma, "w": w, "u": u,
+                           "pts": pts})
             edges = P.sample_from_weights(edges, w, u)
         mids = 0.5 * (edges[:, 1:] + edges[:, :-1])
         px, py, pz = (o[:, a:a + 1] + d[:, a:a + 1] * mids for a in range(3))
@@ -2132,11 +2264,27 @@ def compare_prop_kernels(runner, seed: int) -> dict:
                          (1,) * fc.grid.n_levels, seed + 5)
     check(row["rel_norm_err"] <= 1e-6,
           f"brick_encode_bwd (prop_final): rel {row['rel_norm_err']}")
+    fwd_row = _brick_fwd_row(scene.params["geo"]["table"], fc.grid,
+                             nx.contiguous(), ny.contiguous(), nz.contiguous(),
+                             (1,) * fc.grid.n_levels)
+    # the hash encode's point form at level 0's proposal field (its most
+    # frequent launch on the path: 5 levels, so the float2 row stores),
+    # normalised as query_density_field does
+    from perf_tpu_torch.train.prop_scene import PROP_FIELD_CFGS
+    pc = PROP_FIELD_CFGS[0]
+    x01 = ((levels[0]["pts"].reshape(-1, 3) - pc.aabb_min)
+           / (pc.aabb_max - pc.aabb_min))
+    points_row = _hash_fwd_row(
+        scene.prop_params[0]["table"], pc.grid,
+        *(x01[:, a:a + 1].contiguous() for a in range(3)),
+        (1,) * pc.grid.n_levels)
     # the rows of the kernels line: level 0's shapes (the largest)
     out = {name: {**r["level0"], **{t: v for t, v in r.items()
                                     if t != "level0"}}
            for name, r in res.items()}
     out["brick_encode_bwd_prop_final"] = row
+    out["brick_encode_prop_final"] = fwd_row
+    out["hash_encode_prop_points"] = points_row
     return out
 
 
@@ -2400,19 +2548,27 @@ def run(seed: int):
     results.update(compare_sphere_kernels(sphere_runner.geo_predictor.cfg.field,
                                           seed))
     results.update(compare_prop_kernels(prop_runner, seed))
-    results["brick_encode_bwd"]["prop_final"] = results.pop(
-        "brick_encode_bwd_prop_final")
+    for name in ("brick_encode", "brick_encode_bwd"):
+        results[name]["prop_final"] = results.pop(f"{name}_prop_final")
+    results["hash_encode"]["prop_points"] = results.pop(
+        "hash_encode_prop_points")
     for name, r in results.items():
         log(f"{name}: {json.dumps(r)}")
-    # the two kernels this run's sources redesigned, beside the times
-    # PERF.md recorded before
+    # the redesigned kernels, beside the times PERF.md recorded before their
+    # redesign, with the glue the encodes absorbed
     for name, tags in (("bilinear_sample", (None, "vis_core", "views")),
                        ("brick_encode_bwd", ("scene", "pinned",
-                                             "prop_final"))):
+                                             "prop_final")),
+                       ("hash_encode", ("scene", "pinned", "bake",
+                                        "prop_points")),
+                       ("hash_encode_smooth", (None,)),
+                       ("brick_encode", ("scene", "pinned", "prop_final"))):
         for tag in tags:
             r = results[name] if tag is None else results[name][tag]
+            glue = (f", glue absorbed {r['glue_ms']:.5f}" if "glue_ms" in r
+                    else "")
             log(f"{name}[{tag or 'row'}]: {r['ms']:.5f} ms (was "
-                f"{WAS_MS[name]} at the table's row), bound "
+                f"{WAS_MS[name]} at the table's row{glue}), bound "
                 f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
                 f"{r.get('library_ms')}")
     kernels = []
@@ -2447,6 +2603,7 @@ def run(seed: int):
             "max_abs_err": top["max_abs_err"],
             **{k: top[k] for k in ("max_rel_err", "loose_share",
                                    "rel_norm_err", "points", "strides",
+                                   "glue_ms",
                                    "last_bin_equal",
                                    "last_bin_rounded_rays",
                                    "last_bin_true_prefix_median",
@@ -2460,7 +2617,8 @@ def run(seed: int):
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top.get("library_ms"),
             **{k: r[k] for k in ("pinned", "readback", "bake", "level1",
-                                 "final", "prop_final", "vis_core", "views")
+                                 "final", "prop_final", "prop_points",
+                                 "vis_core", "views")
                if k in r}})
     return {"gather": gather, "train": train, "serve": serve,
             "anchor": anchor, "hash": hashp, "sphere": sphere, "prop": prop,

@@ -13,14 +13,16 @@ interpolation corners are read). On the serving path the encode runs
 fused with the MLPs inside the ``field_eval`` CUDA kernel
 (``fields/ngp.py``). The training path encodes ray-structured samples with
 per-level strides through ``brick_encode_ray``: the ``brick_encode``
-kernels (``csrc/brick_encode.cu``) forward and backward for CUDA tensors,
-the plain versions here for CPU tensors. The sphere distance field encodes
-all levels at once with the in-cell derivatives of the features
-(``brick_encode_stacked_grad``): the ``brick_encode_grad`` kernels
-(``csrc/brick_encode_grad.cu``), forward and backward, for CUDA tensors.
-The ``brick_encode`` backward sums, per warp of 32 consecutive points, the
-runs of points in one voxel and adds each run's 8 corners with float4
-atomics (the source says why).
+kernels (``csrc/brick_encode.cu``) for CUDA tensors, the plain versions
+here for CPU tensors. Its forward kernel writes the lerped,
+level-concatenated features [N, S, L*F] itself; its backward takes the
+coarse points' cotangents (``hashgrid.lerp_levels_transpose``) and sums,
+per warp of 32 consecutive points, the runs of points in one voxel, adding
+each run's 8 corners with float4 atomics (the source says why). The
+sphere distance field encodes all levels at once with the in-cell
+derivatives of the features (``brick_encode_stacked_grad``): the
+``brick_encode_grad`` kernels (``csrc/brick_encode_grad.cu``), forward and
+backward, for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 
 from . import cuda
 from .hashgrid import (coarse_coords, kernel_plan, level_plan, level_table,
-                       lerp_upsample)
+                       lerp_levels, lerp_levels_transpose, ray_kernel_plan)
 
 PRIMES = (1, 2654435761, 805459861)
 BRICK = 3          # voxels per brick edge
@@ -197,33 +199,48 @@ def brick_points_grad_plain(table_shape, nx, ny, nz, cfg: BrickGridConfig,
     return gt
 
 
-def _kernel_plan(cfg: BrickGridConfig, strides, nx, table_shape):
+def _check_table(cfg: BrickGridConfig, table_shape):
     if tuple(table_shape) != (cfg.n_levels, cfg.n_bricks, 128):
         raise ValueError("brick_encode kernel takes a [L, rows, 128] table "
                          f"(2 features), got {tuple(table_shape)}")
-    return kernel_plan(cfg, strides, nx)
 
 
-def brick_points_cuda(table: torch.Tensor, nx, ny, nz, cfg: BrickGridConfig,
-                      strides: tuple) -> torch.Tensor:
-    levels, total = _kernel_plan(cfg, strides, nx, table.shape)
+def brick_encode_ray_plain(table: torch.Tensor, nx, ny, nz,
+                           cfg: BrickGridConfig,
+                           strides: tuple) -> torch.Tensor:
+    """The plain ray form: coords [N, S] -> [N, S, L*F], every level's
+    coarse points encoded, lerped back to the S samples and concatenated
+    (JAX's ``brick_encode_ray``)."""
+    n, s = nx.shape
+    plan, _ = level_plan(cfg, strides, n, s)
+    return lerp_levels(brick_points_plain(table, nx, ny, nz, cfg, strides),
+                       plan, n, s)
+
+
+def brick_encode_ray_cuda(table: torch.Tensor, nx, ny, nz,
+                          cfg: BrickGridConfig,
+                          strides: tuple) -> torch.Tensor:
     dev = nx.device
     for name, a in (("nx", nx), ("ny", ny), ("nz", nz)):
         cuda.check(a, name, torch.float32, tuple(nx.shape), dev)
+    _check_table(cfg, table.shape)
+    levels, per_ray = ray_kernel_plan(cfg, strides, nx)
     tbf = table.to(torch.bfloat16).contiguous()
     cuda.check(tbf, "table", torch.bfloat16,
                (cfg.n_levels, cfg.n_bricks, 128), dev)
-    out = torch.empty((total, 2), dtype=torch.float32, device=dev)
-    _ENCODE.launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), nx.shape[1],
+    n, s = nx.shape
+    out = torch.empty((n, s, cfg.out_dim), dtype=torch.float32, device=dev)
+    _ENCODE.launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), n, s, per_ray,
                    tbf.data_ptr(), cfg.n_bricks, levels.data_ptr(),
-                   cfg.n_levels, total, out.data_ptr())
+                   cfg.n_levels, out.data_ptr())
     return out
 
 
 def brick_points_grad_cuda(table_shape, nx, ny, nz, cfg: BrickGridConfig,
                            strides: tuple, grad: torch.Tensor):
     dev = nx.device
-    levels, total = _kernel_plan(cfg, strides, nx, table_shape)
+    _check_table(cfg, table_shape)
+    levels, total = kernel_plan(cfg, strides, nx)
     for name, a in (("nx", nx), ("ny", ny), ("nz", nz)):
         cuda.check(a, name, torch.float32, tuple(nx.shape), dev)
     if nx.numel() >= 2 ** 31:
@@ -244,7 +261,8 @@ def _register():
     args = [cuda.P, cuda.P, cuda.P, cuda.I32]
     fwd = cuda.register(cuda.CudaKernel(
         "brick_encode", "brick_encode.cu", "brick_encode_fwd_launch",
-        args + [cuda.P, cuda.I32, cuda.P, cuda.I32, cuda.I64, cuda.P]))
+        args + [cuda.I32, cuda.I32, cuda.P, cuda.I32, cuda.P, cuda.I32,
+                cuda.P]))
     bwd = cuda.register(cuda.CudaKernel(
         "brick_encode_bwd", "brick_encode.cu", "brick_encode_bwd_launch",
         args + [cuda.I32, cuda.P, cuda.I32, cuda.I64, cuda.P, cuda.P]))
@@ -255,26 +273,30 @@ _ENCODE, _ENCODE_BWD = _register()
 
 
 class BrickEncode(torch.autograd.Function):
-    """Coarse-point features of all levels, [points, F], with the table
-    gradient (``corner_interp_lowp`` and its VJP); the coordinates get no
-    gradient. CUDA tensors launch the kernels, CPU tensors take the plain
-    versions."""
+    """Features [N, S, L*F] of ray-structured coordinates [N, S] with the
+    table gradient (``brick_encode_ray`` with ``corner_interp_lowp``'s
+    VJP); the coordinates get no gradient. CUDA tensors launch the kernels,
+    CPU tensors take the plain versions; the backward forms the coarse
+    points' cotangents (``lerp_levels_transpose``) and scatters them."""
 
     @staticmethod
     def forward(ctx, table, nx, ny, nz, cfg, strides):
         ctx.save_for_backward(nx, ny, nz)
         ctx.cfg, ctx.strides, ctx.table_shape = cfg, strides, table.shape
         if nx.is_cuda:
-            return brick_points_cuda(table, nx, ny, nz, cfg, strides)
+            return brick_encode_ray_cuda(table, nx, ny, nz, cfg, strides)
         if nx.device.type != "cpu":
             raise ValueError(f"brick_encode: unsupported device {nx.device}")
-        return brick_points_plain(table, nx, ny, nz, cfg, strides)
+        return brick_encode_ray_plain(table, nx, ny, nz, cfg, strides)
 
     @staticmethod
     def backward(ctx, grad):
         nx, ny, nz = ctx.saved_tensors
+        n, s = nx.shape
+        plan, total = level_plan(ctx.cfg, ctx.strides, n, s)
+        g = lerp_levels_transpose(grad, plan, n, s, total)
         fn = brick_points_grad_cuda if grad.is_cuda else brick_points_grad_plain
-        gt = fn(ctx.table_shape, nx, ny, nz, ctx.cfg, ctx.strides, grad)
+        gt = fn(ctx.table_shape, nx, ny, nz, ctx.cfg, ctx.strides, g)
         return gt, None, None, None, None, None
 
 
@@ -284,14 +306,7 @@ def brick_encode_ray(table: torch.Tensor, nx, ny, nz, cfg: BrickGridConfig,
     l is evaluated at its strided points and lerped back to all S samples
     (``brick_encode_ray``)."""
     nx, ny, nz = (a.contiguous() for a in (nx, ny, nz))
-    n, s = nx.shape
-    flat = BrickEncode.apply(table, nx, ny, nz, cfg, tuple(strides))
-    plan, _ = level_plan(cfg, strides, n, s)
-    outs = []
-    for _, _, _, k, npts, first in plan:
-        c = flat[first:first + n * npts].reshape(n, npts, cfg.n_features)
-        outs.append(lerp_upsample(c, k, s))
-    return torch.cat(outs, dim=-1)
+    return BrickEncode.apply(table, nx, ny, nz, cfg, tuple(strides))
 
 
 # -- the stacked encode with derivatives (the sphere field) ------------------

@@ -1,6 +1,7 @@
 // brick_common.cuh: the brick-grid lookup shared by field_eval.cu (serving),
-// brick_encode.cu (training, forward and backward), brick_encode_grad.cu
-// (the sphere field's encode with derivatives) and occ_prune.cu, and the
+// brick_encode.cu (training: the forward through BrickLevels, and the
+// backward), brick_encode_grad.cu (the sphere field's encode with
+// derivatives) and occ_prune.cu, and the
 // geometry head (encode + bf16 MLP + trunc_exp) shared by field_eval.cu and
 // occ_prune.cu.
 //
@@ -89,6 +90,51 @@ __device__ __forceinline__ float2 brick_interp(const BrickCorner& c,
     });
     return make_float2(a0, a1);
 }
+
+// The two features of level l at (x, y, z) from the bf16 [L, rows, 128]
+// table: the forward tile encode's encoder (ray_points.cuh). brick_interp's
+// corners, weights and sums in its order, read four corners at a time: a
+// point's z pair (lz + oz, oz = 0, 1; lz <= 2) lies in the 16-byte group
+// of corners ((lx + ox) * 4 + ly + oy) * 4 + 0..3, so each (ox, oy) is one
+// 16-byte read (the same sector) instead of two 4-byte ones.
+struct BrickLevels {
+    const __nv_bfloat16* __restrict__ table;
+    int rows;
+
+    template <class Level>
+    __device__ __forceinline__ float2 operator()(int l, const Level& L, float x,
+                                                 float y, float z) const {
+        const BrickCorner c = brick_locate(x, y, z, L.res, L.lookup, L.hashed,
+                                           rows);
+        const uint4* groups = reinterpret_cast<const uint4*>(
+            table + ((size_t)l * rows + c.row) * 128);
+        const int lz = c.loc[2];
+        float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+        for (int ox = 0; ox < 2; ++ox) {
+            const float wx = ox ? c.fr[0] : __fsub_rn(1.0f, c.fr[0]);
+#pragma unroll
+            for (int oy = 0; oy < 2; ++oy) {
+                const float wy = oy ? c.fr[1] : __fsub_rn(1.0f, c.fr[1]);
+                const float wxy = __fmul_rn(wx, wy);
+                const uint4 g = __ldg(groups + (c.loc[0] + ox) * 4 + c.loc[1] + oy);
+                const uint32_t pair[2] = {lz == 0 ? g.x : (lz == 1 ? g.y : g.z),
+                                          lz == 0 ? g.y : (lz == 1 ? g.z : g.w)};
+#pragma unroll
+                for (int oz = 0; oz < 2; ++oz) {
+                    const float wz = oz ? c.fr[2] : __fsub_rn(1.0f, c.fr[2]);
+                    const float w = __fmul_rn(wxy, wz);
+                    // a corner's two bf16 features, the first in the low half
+                    const float v0 = __uint_as_float(pair[oz] << 16);
+                    const float v1 = __uint_as_float(pair[oz] & 0xffff0000u);
+                    a0 = __fadd_rn(a0, __fmul_rn(v0, w));
+                    a1 = __fadd_rn(a1, __fmul_rn(v1, w));
+                }
+            }
+        }
+        return make_float2(a0, a1);
+    }
+};
 
 // ---------------------------------------------------------------------------
 // The NGP geometry head of perf_tpu/fields/ngp.py (query_density_coords):

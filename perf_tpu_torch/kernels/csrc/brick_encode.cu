@@ -1,23 +1,32 @@
 // brick_encode: the ray-structured brick-grid encode of the training path,
-// forward (one thread per (level, coarse point)) and backward (one warp per
-// 32 consecutive points).
+// forward (ray_points.cuh's tile encode: the finished [N, S, 2L] features)
+// and backward (one warp per 32 consecutive coarse points).
 //
-// Replaces (JAX): perf_tpu/kernels/brickgrid.py corner_interp_lowp with its
-// custom VJP (_ci_fwd / _ci_bwd), as called per level by brick_encode_ray
-// with the per-level ray strides of hashgrid.level_strides.
+// Replaces (JAX): perf_tpu/kernels/brickgrid.py brick_encode_ray
+// (corner_interp_lowp per level at the strides of hashgrid.level_strides,
+// each level lerped back to the S samples by _lerp_upsample, the levels
+// stacked) with corner_interp_lowp's custom VJP (_ci_fwd / _ci_bwd).
 //
-// Points: the level plan of ray_points.cuh. The lerp back to S samples
-// runs around the kernel in PyTorch (kernels/brickgrid.py), so the backward
-// receives the coarse points' cotangents already summed in float32, as
-// JAX's transpose of the lerp delivers them.
+// Forward: a block stages a tile of rays' coordinates in shared memory,
+// encodes every level's coarse points of the tile with BrickLevels
+// (brick_common.cuh, shared with field_eval.cu: find the point's brick row,
+// dense or the uint32 prime hash masked to the table, read the 8
+// interpolation corners' two bf16 features from the row and weight them
+// with the factored trilinear weights (wx * wy) * wz in JAX's order) and
+// writes the tile's [rays, S, 2L] float32 rows with 16-byte stores, the
+// lerp of strided levels done on the way. What bounds it: memory; a
+// coarse point reads 32 bytes of scattered corners (2 to 4 sectors) from a
+// 16 MB bf16 table that sits in L2, the coordinates are read once (12
+// bytes a sample) and each sample's row of 8L bytes is written once (128
+// at 16 levels: the largest term at the training shapes). On an H100 a
+// larger table lost more than fewer sectors a point gained: float32 rows
+// and rows repacked to 2 sectors a point at 1.5x the bytes were both
+// slower (PERF.md).
 //
-// Forward: find the point's brick row (dense, or the uint32 prime hash
-// masked to the table), read the 8 interpolation corners' two bf16 features
-// from the row and weight them with the factored trilinear weights
-// (wx * wy) * wz, in JAX's operation order; write the 2 features in f32.
-// The lookup and weights are brick_common.cuh's, shared with field_eval.cu.
-// What bounds it: memory, one 32-byte read of scattered corners per point
-// from a 16 MB bf16 table that sits in L2, 12 bytes of coordinates, 8 out.
+// Points of the backward: the level plan of ray_points.cuh. The wrapper
+// turns the features' cotangent into the coarse points' with the lerp's
+// and the stack's transpose in PyTorch, so the backward receives them
+// summed in float32, as JAX's transpose of the lerp delivers them.
 //
 // Backward: JAX's rule is that each single contribution w * g of a corner
 // and feature is rounded to bf16 before any sum, and every sum is float32;
@@ -67,26 +76,9 @@ constexpr int THREADS = 256;
 constexpr int ROW = 128;       // 64 corners x 2 features
 constexpr int LV = PLAN_COLS;  // res, nb, hashed, stride, npts, first point
 
-__global__ void __launch_bounds__(THREADS)
-brick_fwd_kernel(const float* __restrict__ nx, const float* __restrict__ ny,
-                 const float* __restrict__ nz, int n_samples,
-                 const __nv_bfloat16* __restrict__ table, int rows,
-                 const int* __restrict__ levels, int n_levels, long long total,
-                 float* __restrict__ out) {
-    __shared__ int lv[PLAN_MAX_LEVELS * PLAN_COLS];
-    load_plan(lv, levels, n_levels);
-    for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total;
-         g += (long long)gridDim.x * blockDim.x) {
-        long long ray;
-        int s;
-        const int l = plan_point(g, lv, n_levels, n_samples, ray, s);
-        const long long si = ray * n_samples + s;
-        const BrickCorner c = brick_locate(nx[si], ny[si], nz[si], lv[l * LV],
-                                           lv[l * LV + 1], lv[l * LV + 2], rows);
-        const float2 f = brick_interp(c, table + ((size_t)l * rows + c.row) * ROW);
-        out[2 * g] = f.x;
-        out[2 * g + 1] = f.y;
-    }
+__global__ void __launch_bounds__(TILE_THREADS)
+brick_ray_fwd_kernel(TileArgs a, BrickLevels enc) {
+    ray_encode_tile(a, enc);
 }
 
 // The plan's level of point g (g < 2^31) and the sample it reads: returns
@@ -197,16 +189,12 @@ brick_bwd_kernel(const float* __restrict__ nx, const float* __restrict__ ny,
 }  // namespace
 
 extern "C" int brick_encode_fwd_launch(
-        const void* nx, const void* ny, const void* nz, int n_samples,
-        const void* table, int rows, const void* levels, int n_levels,
-        long long total, void* out, void* stream) {
-    if (n_levels < 1 || n_levels > PLAN_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-    if (total <= 0) return (int)cudaSuccess;
-    brick_fwd_kernel<<<plan_grid(total, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)nx, (const float*)ny, (const float*)nz, n_samples,
-        (const __nv_bfloat16*)table, rows, (const int*)levels, n_levels, total,
-        (float*)out);
-    return (int)cudaGetLastError();
+        const void* nx, const void* ny, const void* nz, int n_rays,
+        int n_samples, int per_ray, const void* table, int rows,
+        const void* levels, int n_levels, void* out, void* stream) {
+    const BrickLevels enc = {(const __nv_bfloat16*)table, rows};
+    return launch_ray_tile(brick_ray_fwd_kernel, enc, nx, ny, nz, n_rays,
+                           n_samples, per_ray, levels, n_levels, out, stream);
 }
 
 extern "C" int brick_encode_bwd_launch(

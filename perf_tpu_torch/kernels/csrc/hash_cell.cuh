@@ -20,6 +20,8 @@
 // T - 1. Its weight is (A * B) * C with A = w or 1 - w per axis, and with
 // GRAD its derivatives (dA * B) * C, (A * dB) * C, (A * B) * dC, dA = dw
 // or -dw. Every float operation is rounded on its own (no contraction).
+// HashLevels is the forward tile encode's encoder (ray_points.cuh): a
+// level's two features at a point, from the table interleaved [L, T, 2].
 
 #pragma once
 
@@ -100,3 +102,30 @@ __device__ __forceinline__ void for_hash_corners(const HashCell& h, int r1,
         }
     }
 }
+
+// The two features of level l at (x, y, z) from the float32 table
+// interleaved as [L, T, 2] (the wrapper's per-call copy of JAX's [L, 2, T]
+// layout): one 8-byte read a corner; each feature sums table[l][row][f] *
+// weight corner after corner in JAX's order.
+template <bool SMOOTH>
+struct HashLevels {
+    const float2* __restrict__ table;
+    int table_size;
+    uint32_t mask;
+
+    template <class Level>
+    __device__ __forceinline__ float2 operator()(int l, const Level& L, float x,
+                                                 float y, float z) const {
+        const float p[3] = {x, y, z};
+        const HashCell h = hash_cell<SMOOTH, false>(p, L.res);
+        const float2* t = table + (size_t)l * table_size;
+        float a0 = 0.0f, a1 = 0.0f;
+        for_hash_corners<false>(h, L.lookup, L.hashed, mask,
+                                [&](uint32_t r, float w) {
+            const float2 v = __ldg(t + r);
+            a0 = __fadd_rn(a0, __fmul_rn(v.x, w));
+            a1 = __fadd_rn(a1, __fmul_rn(v.y, w));
+        });
+        return make_float2(a0, a1);
+    }
+};

@@ -12,15 +12,18 @@ checkpoint of either package loads in the other. Interpolation is linear
 (the NGP field's) or smoothstep, w = f * f * (3 - 2 f) (the sphere field's,
 ``HashGridConfig.sphere_field``).
 
-Both forms run through ``HashEncode``: the encode of every level's points
-(the level plan of ``level_plan``: a level of stride k reads samples 0, k,
-..., S-k and S-1 of each ray; the point form is rays of one sample) with
-the table gradient. CUDA tensors launch the ``hash_encode`` kernels
+Both forms run through ``HashEncode``: the finished features [N, S, L*F]
+of ray-structured coordinates [N, S] (the level plan of ``level_plan``: a
+level of stride k is encoded at samples 0, k, ..., S-k and S-1 of each ray
+and lerped back to all S; the point form is rays of one sample) with the
+table gradient. CUDA tensors launch the ``hash_encode`` kernels
 (``csrc/hash_encode.cu``; the smoothstep variant counts as
-``hash_encode_smooth``), forward and backward; CPU tensors take the plain
-versions here, which keep JAX's order of corner offsets, weight products
-and sums. The lerp back to all S samples runs around the kernel in
-PyTorch. ``HashEncode`` gives no position gradient.
+``hash_encode_smooth``): the forward writes the lerped, level-concatenated
+features itself, the backward takes the coarse points' cotangents, which
+``lerp_levels_transpose`` forms with the ops autograd runs on the lerp and
+the concatenation. CPU tensors take the plain versions here, which keep
+JAX's order of corner offsets, weight products and sums.
+``HashEncode`` gives no position gradient.
 
 The sphere field's ``ad`` gradients take ``hash_encode_grad``: the point
 form's features and their derivatives with respect to the position, dfeats
@@ -253,18 +256,71 @@ def level_strides(cfg, step: float, n_samples: int) -> tuple:
     return tuple(strides)
 
 
+@functools.lru_cache(maxsize=64)
+def _lerp_weights(stride: int, dtype, device) -> tuple:
+    """(w, 1 - w) of ``_lerp_upsample`` at ``stride``: w = arange(k) / k as
+    [1, 1, k, 1], made once per stride, type and device."""
+    w = torch.arange(stride, dtype=dtype, device=device) / stride
+    w = w.reshape(1, 1, stride, 1)
+    return w, 1.0 - w
+
+
 def lerp_upsample(coarse: torch.Tensor, stride: int, n: int) -> torch.Tensor:
-    """[N, P+1, ...] values at every ``stride``-th sample plus the last ->
-    [N, n, ...] by linear interpolation (``_lerp_upsample``)."""
+    """[N, P+1, F] values at every ``stride``-th sample plus the last ->
+    [N, n, F] by linear interpolation (``_lerp_upsample``)."""
     if stride == 1:
         return coarse[:, :n]
     p = n // stride
     left = coarse[:, :p].unsqueeze(2)
     right = coarse[:, 1:p + 1].unsqueeze(2)
-    w = torch.arange(stride, dtype=coarse.dtype, device=coarse.device) / stride
-    w = w.reshape((1, 1, stride) + (1,) * (coarse.dim() - 2))
-    full = left * (1.0 - w) + right * w
+    w, one_minus_w = _lerp_weights(stride, coarse.dtype, coarse.device)
+    full = left * one_minus_w + right * w
     return full.reshape((coarse.shape[0], p * stride) + coarse.shape[2:])
+
+
+def lerp_levels(flat: torch.Tensor, plan, n: int, s: int) -> torch.Tensor:
+    """Coarse points' features [points, F] of a level plan -> the samples'
+    [N, S, L*F]: each level lerped back to the S samples, the levels
+    concatenated (what the forward kernels write)."""
+    nf = flat.shape[1]
+    return torch.cat([
+        lerp_upsample(flat[first:first + n * npts].reshape(n, npts, nf), k, s)
+        for _, _, _, k, npts, first in plan], dim=-1)
+
+
+def lerp_levels_transpose(grad: torch.Tensor, plan, n: int, s: int,
+                          total: int) -> torch.Tensor:
+    """The transpose of ``lerp_levels``: the samples' cotangent [N, S,
+    L*F] -> the coarse points' [points, F], with the float32 operations
+    autograd runs on the lerp (each product, the sum over a stride's
+    samples, the two neighbours' shares added) and the concatenation, so
+    the values equal autograd's. A run of stride-1 levels is one copy."""
+    nf = grad.shape[-1] // len(plan)
+    out = grad.new_empty((total, nf))
+    lvl = 0
+    while lvl < len(plan):
+        k, npts, first = plan[lvl][3:]
+        if k == 1:
+            end = lvl
+            while end < len(plan) and plan[end][3] == 1:
+                end += 1
+            out[first:first + (end - lvl) * n * s].view(
+                end - lvl, n, s, nf).copy_(
+                grad[..., lvl * nf:end * nf].reshape(n, s, end - lvl, nf)
+                .permute(2, 0, 1, 3))
+            lvl = end
+            continue
+        p = s // k
+        w, one_minus_w = _lerp_weights(k, grad.dtype, grad.device)
+        g = grad[..., lvl * nf:(lvl + 1) * nf].reshape(n, p, k, nf)
+        left = (g * one_minus_w).sum(2, keepdim=True).squeeze(2)
+        right = (g * w).sum(2, keepdim=True).squeeze(2)
+        dst = out[first:first + n * npts].view(n, npts, nf)
+        dst[:, :p].copy_(left)
+        dst[:, p:].zero_()
+        dst[:, 1:].add_(right)
+        lvl += 1
+    return out
 
 
 def level_plan(cfg, strides: tuple, n_rays: int, n_samples: int) -> tuple:
@@ -302,6 +358,17 @@ def kernel_plan(cfg, strides: tuple, nx: torch.Tensor) -> tuple:
     if total >= 2 ** 31:
         raise ValueError(f"{total} points: the kernel indexes points in int32")
     return plan_tensor(tuple(plan), nx.device), total
+
+
+def ray_kernel_plan(cfg, strides: tuple, nx: torch.Tensor) -> tuple:
+    """(the level plan on nx's device, coarse points a ray) of a forward
+    tile launch, whose lerp takes power-of-two strides (``level_strides``
+    gives only those)."""
+    if any(k & (k - 1) for k in strides):
+        raise ValueError(f"strides {tuple(strides)}: the forward kernels "
+                         "lerp power-of-two strides only")
+    levels, total = kernel_plan(cfg, strides, nx)
+    return levels, total // max(nx.shape[0], 1)
 
 
 # -- the encode of a level plan's points, plain and kernel ----------------------
@@ -348,17 +415,32 @@ def _check_kernel_args(cfg: HashGridConfig, table_shape, coords):
         cuda.check(a, name, torch.float32, tuple(coords[0].shape), dev)
 
 
-def hash_points_cuda(table: torch.Tensor, nx, ny, nz, cfg: HashGridConfig,
-                     strides: tuple) -> torch.Tensor:
+def hash_encode_ray_plain(table: torch.Tensor, nx, ny, nz,
+                          cfg: HashGridConfig, strides: tuple) -> torch.Tensor:
+    """The plain ray form: coords [N, S] -> [N, S, L*F], every level's
+    coarse points encoded, lerped back to the S samples and concatenated
+    (JAX's ``hash_encode_ray``; the point form is S = 1)."""
+    n, s = nx.shape
+    plan, _ = level_plan(cfg, strides, n, s)
+    return lerp_levels(hash_points_plain(table, nx, ny, nz, cfg, strides),
+                       plan, n, s)
+
+
+def hash_encode_ray_cuda(table: torch.Tensor, nx, ny, nz,
+                         cfg: HashGridConfig, strides: tuple) -> torch.Tensor:
     _check_kernel_args(cfg, table.shape, (nx, ny, nz))
-    levels, total = kernel_plan(cfg, strides, nx)
+    levels, per_ray = ray_kernel_plan(cfg, strides, nx)
     dev = nx.device
-    table = table.contiguous()
-    cuda.check(table, "table", torch.float32, None, dev)
-    out = torch.empty((total, 2), dtype=torch.float32, device=dev)
-    _ENCODE[_smooth(cfg)].launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), nx.shape[1],
-                   table.data_ptr(), cfg.table_size, levels.data_ptr(),
-                   cfg.n_levels, total, out.data_ptr())
+    n, s = nx.shape
+    # the kernel reads a corner's two features as one float2: an [L, T, 2]
+    # copy of the [L, 2, T] parameter, made per call
+    inter = table.transpose(1, 2).contiguous()
+    cuda.check(inter, "table", torch.float32, None, dev)
+    out = torch.empty((n, s, cfg.out_dim), dtype=torch.float32, device=dev)
+    _ENCODE[_smooth(cfg)].launch(
+        nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), n, s, per_ray,
+        inter.data_ptr(), cfg.table_size, levels.data_ptr(), cfg.n_levels,
+        out.data_ptr())
     return out
 
 
@@ -382,7 +464,7 @@ _ARGS = [cuda.P, cuda.P, cuda.P, cuda.I32]
 # indexed by smoothstep: the linear entry points, then the smoothstep ones
 _ENCODE = tuple(cuda.register(cuda.CudaKernel(
     f"hash_encode{tag}", "hash_encode.cu", f"hash_encode{tag}_fwd_launch",
-    _ARGS + [cuda.P, cuda.I32, cuda.P, cuda.I32, cuda.I64, cuda.P]))
+    _ARGS + [cuda.I32, cuda.I32, cuda.P, cuda.I32, cuda.P, cuda.I32, cuda.P]))
     for tag in ("", "_smooth"))
 _ENCODE_BWD = tuple(cuda.register(cuda.CudaKernel(
     f"hash_encode{tag}_bwd", "hash_encode.cu", f"hash_encode{tag}_bwd_launch",
@@ -391,10 +473,11 @@ _ENCODE_BWD = tuple(cuda.register(cuda.CudaKernel(
 
 
 class HashEncode(torch.autograd.Function):
-    """Features [points, F] of a level plan's points with the table
-    gradient; the coordinates get none (the NeRF path never needs the
-    position gradient). CUDA tensors launch the kernels, CPU tensors take
-    the plain versions."""
+    """Features [N, S, L*F] of ray-structured coordinates [N, S] with the
+    table gradient; the coordinates get none (the NeRF path never needs
+    the position gradient). CUDA tensors launch the kernels, CPU tensors
+    take the plain versions; the backward forms the coarse points'
+    cotangents (``lerp_levels_transpose``) and scatters them."""
 
     @staticmethod
     def forward(ctx, table, nx, ny, nz, cfg, strides):
@@ -402,20 +485,27 @@ class HashEncode(torch.autograd.Function):
         ctx.save_for_backward(nx, ny, nz)
         ctx.cfg, ctx.strides, ctx.table_shape = cfg, strides, table.shape
         if nx.is_cuda:
-            return hash_points_cuda(table, nx, ny, nz, cfg, strides)
+            return hash_encode_ray_cuda(table, nx, ny, nz, cfg, strides)
         if nx.device.type != "cpu":
             raise ValueError(f"hash_encode: unsupported device {nx.device}")
-        return hash_points_plain(table, nx, ny, nz, cfg, strides)
+        return hash_encode_ray_plain(table, nx, ny, nz, cfg, strides)
 
     @staticmethod
     def backward(ctx, grad):
         nx, ny, nz = ctx.saved_tensors
+        n, s = nx.shape
+        plan, total = level_plan(ctx.cfg, ctx.strides, n, s)
+        g = lerp_levels_transpose(grad, plan, n, s, total)
         fn = hash_points_grad_cuda if grad.is_cuda else hash_points_grad_plain
-        gt = fn(ctx.table_shape, nx, ny, nz, ctx.cfg, ctx.strides, grad)
+        gt = fn(ctx.table_shape, nx, ny, nz, ctx.cfg, ctx.strides, g)
         return gt, None, None, None, None, None
 
 
-def _encode_points(table, nx, ny, nz, cfg, strides) -> torch.Tensor:
+def hash_encode_ray(table: torch.Tensor, nx, ny, nz, cfg: HashGridConfig,
+                    strides: tuple) -> torch.Tensor:
+    """Ray-structured encode: normalised coords [N, S] -> [N, S, L*F]. Level
+    l is evaluated at its strided points and lerped back to all S samples
+    (``hash_encode_ray``)."""
     if torch.is_grad_enabled() and any(a.requires_grad for a in (nx, ny, nz)):
         raise ValueError("the hash encode gives the table gradient only; "
                          "detach the coordinates (hash_encode_grad gives "
@@ -424,29 +514,14 @@ def _encode_points(table, nx, ny, nz, cfg, strides) -> torch.Tensor:
     return HashEncode.apply(table, nx, ny, nz, cfg, tuple(strides))
 
 
-def hash_encode_ray(table: torch.Tensor, nx, ny, nz, cfg: HashGridConfig,
-                    strides: tuple) -> torch.Tensor:
-    """Ray-structured encode: normalised coords [N, S] -> [N, S, L*F]. Level
-    l is evaluated at its strided points and lerped back to all S samples
-    (``hash_encode_ray``)."""
-    n, s = nx.shape
-    flat = _encode_points(table, nx, ny, nz, cfg, strides)
-    plan, _ = level_plan(cfg, strides, n, s)
-    return torch.cat([
-        lerp_upsample(flat[first:first + n * npts].reshape(
-            n, npts, cfg.n_features), k, s)
-        for _, _, _, k, npts, first in plan], dim=-1)
-
-
 def hash_encode_coords(table: torch.Tensor, x, y, z,
                        cfg: HashGridConfig) -> torch.Tensor:
     """The point form: coords [...] in [0, 1] -> [..., L*F], level-major
     (level 0 f0, level 0 f1, level 1 f0, ...): one sample per ray, every
     stride 1."""
     shape = x.shape
-    flat = _encode_points(table, *(a.reshape(-1, 1) for a in (x, y, z)),
-                          cfg, (1,) * cfg.n_levels)
-    feats = flat.reshape(cfg.n_levels, -1, cfg.n_features).permute(1, 0, 2)
+    feats = hash_encode_ray(table, *(a.reshape(-1, 1) for a in (x, y, z)),
+                            cfg, (1,) * cfg.n_levels)
     return feats.reshape(*shape, cfg.out_dim)
 
 

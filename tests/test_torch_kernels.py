@@ -33,9 +33,11 @@ from perf_tpu_torch.render.snapshot import (
     bake_corners, bake_scatter_pack, bake_scatter_pack_plain, bake_snapshot,
     composite_snapshot, composite_snapshot_cuda, composite_snapshot_plain)
 from perf_tpu_torch.kernels.brickgrid import (
-    BrickEncode, brick_index, brick_points_cuda, brick_points_grad_cuda,
-    brick_points_grad_plain, brick_points_plain)
-from perf_tpu_torch.kernels.hashgrid import level_strides
+    BrickEncode, brick_encode_ray, brick_encode_ray_cuda,
+    brick_encode_ray_plain, brick_index, brick_points_grad_cuda,
+    brick_points_grad_plain)
+from perf_tpu_torch.kernels.hashgrid import (level_plan, lerp_levels,
+                                             lerp_levels_transpose)
 from perf_tpu_torch.render.occgrid import (occ_grid_from_points,
                                            occ_grid_from_points_cuda,
                                            occ_grid_from_points_plain)
@@ -60,8 +62,9 @@ from perf_tpu_torch.render import prop as prop_k
 from perf_tpu_torch.kernels.hashgrid import (
     HashGridConfig, HashEncode, hash_encode, hash_encode_grad,
     hash_encode_grad_cuda, hash_encode_grad_grad_cuda,
-    hash_encode_grad_grad_plain, hash_encode_grad_plain, hash_points_cuda,
-    hash_points_grad_cuda, hash_points_grad_plain, hash_points_plain)
+    hash_encode_grad_grad_plain, hash_encode_grad_plain, hash_encode_ray,
+    hash_encode_ray_cuda, hash_encode_ray_plain, hash_points_grad_cuda,
+    hash_points_grad_plain)
 from perf_tpu_torch.utils import (cube_room_occ_grid, random_field_params,
                                   render_cube_room_pano)
 from perf_tpu_torch.data import Dataset
@@ -171,6 +174,74 @@ def bilinear_case(c: int, padding: str, seed: int):
     return img, coords, cot
 
 
+FWD_CASES = ("tail", "point", "s48", "s80", "faces", "misaligned", "one")
+
+
+def fwd_case(name: str, n_levels: int, device):
+    """One hard input of the forward encodes, from a seed: (x, y, z [N, S]
+    float32, strides). N is no multiple of a tile's rays (``one``: a single
+    ray of 8 samples); strides run from 16 to 1 in one plan (all 1 in the
+    point form, S = 1); ``faces`` puts samples exactly at 0 and 1 and
+    beyond both faces; ``misaligned`` hands the kernel coordinates 4 bytes
+    past a 16-byte boundary."""
+    rng = np.random.default_rng(60 + FWD_CASES.index(name))
+    n, s = {"point": (2049, 1), "s48": (129, 48), "s80": (37, 80),
+            "one": (1, 8)}.get(name, (257, 32))
+    strides = tuple(min(k, s) for k in (16, 1, 4, 2, 8, 1, 2, 16)[:n_levels])
+    pts = np.sort(rng.uniform(-0.05, 1.05, (n, s, 3)), axis=1)
+    if name == "faces":
+        flat = pts.reshape(-1, 3)
+        edge = np.array([0.0, 1.0, -0.25, 1.25, 0.5])
+        flat[::7] = edge[rng.integers(0, 5, flat[::7].shape)]
+    out = []
+    for a in range(3):
+        v = torch.from_numpy(np.ascontiguousarray(pts[..., a], np.float32))
+        if name == "misaligned":
+            buf = torch.empty(n * s + 5, device=device)
+            view = buf[1:1 + n * s].view(n, s)
+            view.copy_(v)
+            assert view.data_ptr() % 16 == 4
+            out.append(view)
+        else:
+            out.append(v.to(device))
+    return (*out, strides)
+
+
+def check_forward_and_grad(fn, plain, grad_kernel, grad_plain, name: str,
+                           table, coords, grid, strides, tol: float,
+                           seed: int):
+    """The Function ``fn`` on the card against the plain composition
+    ``plain`` (within ``tol``; 0.0: bitwise), one launch of the forward
+    kernel ``name``; the table gradient through it against the plain
+    backward ``grad_plain`` and against the [P, 2] route's backward kernel
+    ``grad_kernel``, both on the coarse cotangents that autograd of the
+    plain lerp and concatenation gives."""
+    x, y, z = coords
+    n, s = x.shape
+    t = table.clone().requires_grad_(True)
+    before = cuda.counts()[name]
+    got = fn(t, x, y, z, grid, strides)
+    assert cuda.counts()[name] == before + 1
+    ref = plain(table, x, y, z, grid, strides)
+    if tol == 0.0:
+        assert torch.equal(got, ref)
+    else:
+        assert (got - ref).abs().max().item() <= tol
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    g = torch.randn(got.shape, generator=gen, device=x.device)
+    got.backward(g)
+    plan, total = level_plan(grid, strides, n, s)
+    leaf = torch.zeros((total, 2), device=x.device, requires_grad=True)
+    (coarse,) = torch.autograd.grad(lerp_levels(leaf, plan, n, s), leaf, g)
+    assert torch.equal(lerp_levels_transpose(g, plan, n, s, total), coarse)
+    cs = [a.contiguous() for a in coords]
+    # the same contributions; float atomics add them in an order that
+    # changes from run to run
+    for gt_ref in (grad_plain(table.shape, *cs, grid, strides, coarse),
+                   grad_kernel(table.shape, *cs, grid, strides, coarse)):
+        assert ((t.grad - gt_ref).norm() / gt_ref.norm()).item() <= 1e-6
+
+
 def _rays(n: int, seed: int, device):
     rng = np.random.default_rng(seed)
     o = rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
@@ -198,7 +269,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
     x = torch.rand(4, 8)
     strides = (1,) * TINY.grid.n_levels
     with pytest.raises(ValueError, match="CUDA"):
-        brick_points_cuda(params["geo"]["table"], x, x, x, TINY.grid, strides)
+        brick_encode_ray_cuda(params["geo"]["table"], x, x, x, TINY.grid,
+                              strides)
     with pytest.raises(ValueError, match="CUDA"):
         brick_points_grad_cuda(params["geo"]["table"].shape, x, x, x,
                                TINY.grid, strides, torch.zeros(32 * 4, 2))
@@ -230,19 +302,19 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
                              torch.zeros((2, 8, 3)))
     h_table = torch.zeros(HASH.table_shape)
     with pytest.raises(ValueError, match="CUDA"):
-        hash_points_cuda(h_table, x, x, x, HASH, (1,) * 6)
+        hash_encode_ray_cuda(h_table, x, x, x, HASH, (1,) * 6)
     with pytest.raises(ValueError, match="CUDA"):
         hash_points_grad_cuda(h_table.shape, x, x, x, HASH, (1,) * 6,
                               torch.zeros((6 * 32, 2)))
     smooth = dataclasses.replace(HASH, interpolation="smoothstep")
     with pytest.raises(ValueError, match="CUDA"):
-        hash_points_cuda(h_table, x, x, x, smooth, (1,) * 6)
+        hash_encode_ray_cuda(h_table, x, x, x, smooth, (1,) * 6)
     with pytest.raises(ValueError, match="CUDA"):
         hash_points_grad_cuda(h_table.shape, x, x, x, smooth, (1,) * 6,
                               torch.zeros((6 * 32, 2)))
     cubic = dataclasses.replace(HASH, interpolation="cubic")
     with pytest.raises(ValueError, match="only"):
-        hash_points_cuda(h_table, x, x, x, cubic, (1,) * 6)
+        hash_encode_ray_cuda(h_table, x, x, x, cubic, (1,) * 6)
     with pytest.raises(ValueError, match="CUDA"):
         hash_encode_grad_cuda(h_table, o, smooth)
     with pytest.raises(ValueError, match="CUDA"):
@@ -351,6 +423,7 @@ def test_importing_the_anchor_slice_never_imports_jax():
             "perf_tpu_torch.kernels.gather, "
             "perf_tpu_torch.tools.bench_pallas_encode, "
             "perf_tpu_torch.tools.bilinear_variants, "
+            "perf_tpu_torch.tools.encode_probe, "
             "perf_tpu_torch.priors.pano_refiner, "
             "perf_tpu_torch.priors.pano_fusion, perf_tpu_torch.data.dataset; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -440,30 +513,18 @@ def test_march_and_composite_kernels_match_plain(gpu, budget):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,s", [(1, 8), (257, 32)])
-def test_brick_encode_kernels_match_plain(gpu, n, s):
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_brick_encode_kernels_match_plain(gpu, case):
+    """The forward writes the lerped, level-concatenated features: the same
+    8 bf16 corners a coarse point, summed in another order (float32
+    rounding), and the same lerp; the gradient through ``BrickEncode``
+    equals the [P, 2] route's."""
     dev, params, _ = gpu
-    rng = np.random.default_rng(n)
-    x, y, z = (torch.from_numpy(np.sort(rng.uniform(-0.05, 1.05, (n, s)), 1)
-                                .astype(np.float32)).to(dev) for _ in range(3))
-    strides = level_strides(TINY.grid, 4e-3, s)
-    assert max(strides) > 1
-    table = params["geo"]["table"]
-    before = cuda.counts()["brick_encode"]
-    got = brick_points_cuda(table, x, y, z, TINY.grid, strides)
-    assert cuda.counts()["brick_encode"] == before + 1
-    ref = brick_points_plain(table, x, y, z, TINY.grid, strides)
-    # the same 8 bf16 corners, summed in another order: float32 rounding
-    assert (got - ref).abs().max().item() <= 1e-6
-    g = torch.from_numpy(rng.normal(size=tuple(ref.shape)).astype(
-        np.float32)).to(dev)
-    gt = brick_points_grad_cuda(table.shape, x, y, z, TINY.grid, strides, g)
-    gt_ref = brick_points_grad_plain(table.shape, x, y, z, TINY.grid,
-                                     strides, g)
-    # the same bf16-rounded contributions; float atomics add them in an
-    # order that changes from run to run
-    err = (gt - gt_ref).norm() / gt_ref.norm()
-    assert err.item() <= 1e-6
+    *coords, strides = fwd_case(case, TINY.grid.n_levels, dev)
+    check_forward_and_grad(
+        brick_encode_ray, brick_encode_ray_plain, brick_points_grad_cuda,
+        brick_points_grad_plain, "brick_encode", params["geo"]["table"],
+        coords, TINY.grid, strides, 1e-6, FWD_CASES.index(case))
 
 
 @pytest.mark.cuda
@@ -686,30 +747,28 @@ def test_row_gather_kernels_equal_plain_bitwise(gpu, block):
         assert torch.equal(got.view(torch.int16), ref), name
 
 
+# a 5-level hash grid (res 4 .. 26; levels 0 and 1 dense, 2-4 hashed into
+# 1024 rows): an odd level count, whose rows the forward writes as float2s
+HASH5 = dataclasses.replace(HASH, n_levels=5)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,s", [(1, 8), (257, 32)])
-def test_hash_encode_kernels_match_plain(gpu, n, s):
+@pytest.mark.parametrize("grid", [HASH, HASH5], ids=["6_levels", "5_levels"])
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_hash_encode_kernels_match_plain(gpu, case, grid):
+    """The forward writes the lerped, level-concatenated features: the same
+    corners, weights, sums and lerp in the same order (no contraction), so
+    bitwise; the gradient through ``HashEncode`` equals the [P, 2]
+    route's."""
     dev = gpu[0]
-    rng = np.random.default_rng(n)
-    x, y, z = (torch.from_numpy(np.sort(rng.uniform(-0.05, 1.05, (n, s)), 1)
-                                .astype(np.float32)).to(dev) for _ in range(3))
-    strides = level_strides(HASH, 4e-3, s)
-    assert max(strides) > 1
-    table = torch.from_numpy(rng.uniform(-0.1, 0.1, HASH.table_shape).astype(
+    rng = np.random.default_rng(FWD_CASES.index(case))
+    *coords, strides = fwd_case(case, grid.n_levels, dev)
+    table = torch.from_numpy(rng.uniform(-0.1, 0.1, grid.table_shape).astype(
         np.float32)).to(dev)
-    before = cuda.counts()["hash_encode"]
-    got = hash_points_cuda(table, x, y, z, HASH, strides)
-    assert cuda.counts()["hash_encode"] == before + 1
-    ref = hash_points_plain(table, x, y, z, HASH, strides)
-    # the same corners, weights and sums in the same order (no contraction)
-    assert (got - ref).abs().max().item() <= 1e-6
-    g = torch.from_numpy(rng.normal(size=tuple(ref.shape)).astype(
-        np.float32)).to(dev)
-    gt = hash_points_grad_cuda(table.shape, x, y, z, HASH, strides, g)
-    gt_ref = hash_points_grad_plain(table.shape, x, y, z, HASH, strides, g)
-    # the same float32 contributions; float atomics add them in an order
-    # that changes from run to run
-    assert ((gt - gt_ref).norm() / gt_ref.norm()).item() <= 1e-6
+    check_forward_and_grad(
+        hash_encode_ray, hash_encode_ray_plain, hash_points_grad_cuda,
+        hash_points_grad_plain, "hash_encode", table, coords, grid, strides,
+        0.0, FWD_CASES.index(case))
 
 
 def _sphere_points(n: int, seed: int) -> np.ndarray:
@@ -723,32 +782,40 @@ def _sphere_points(n: int, seed: int) -> np.ndarray:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [3, 2049])
-def test_hash_encode_smooth_kernels_match_plain(gpu, n):
+@pytest.mark.parametrize("case", FWD_CASES + ("sphere_points",))
+def test_hash_encode_smooth_kernels_match_plain(gpu, case):
+    """The smoothstep forward (the sphere field's grid) on the hard plans
+    and on the sphere field's point form (directions on and beyond the
+    box's faces through ``hash_encode``): bitwise its plain version, one
+    ``hash_encode_smooth`` launch and no linear one; the gradient through
+    ``HashEncode`` equals the [P, 2] route's."""
     dev = gpu[0]
     grid = HASH_SPHERE
-    rng = np.random.default_rng(n)
-    x = torch.from_numpy(_sphere_points(n, n)).to(dev)
+    rng = np.random.default_rng(7 + len(case))
     table = torch.from_numpy(rng.uniform(-0.5, 0.5, grid.table_shape).astype(
         np.float32)).to(dev)
-    strides = (1,) * grid.n_levels
-    coords = [x[:, a:a + 1].contiguous() for a in range(3)]
+    if case == "sphere_points":
+        x = torch.from_numpy(_sphere_points(2049, 3)).to(dev)
+        before = cuda.counts()
+        got = hash_encode(table, x, grid)
+        after = cuda.counts()
+        assert after["hash_encode_smooth"] == before["hash_encode_smooth"] + 1
+        assert after["hash_encode"] == before["hash_encode"]
+        coords = [x[:, a:a + 1].contiguous() for a in range(3)]
+        ref = hash_encode_ray_plain(table, *coords, grid, (1,) * 4)
+        assert torch.equal(got, ref.reshape(got.shape))
+        strides = (1,) * grid.n_levels
+    else:
+        *coords, strides = fwd_case(case, grid.n_levels, dev)
     before = cuda.counts()
-    got = hash_points_cuda(table, *coords, grid, strides)
+    check_forward_and_grad(
+        hash_encode_ray, hash_encode_ray_plain, hash_points_grad_cuda,
+        hash_points_grad_plain, "hash_encode_smooth", table, coords, grid,
+        strides, 0.0, len(case))
     after = cuda.counts()
-    assert after["hash_encode_smooth"] == before["hash_encode_smooth"] + 1
     assert after["hash_encode"] == before["hash_encode"]
-    ref = hash_points_plain(table, *coords, grid, strides)
-    # the same corners, smoothstep weights and sums in the same order
-    assert (got - ref).abs().max().item() <= 1e-6
-    g = torch.from_numpy(rng.normal(size=tuple(ref.shape)).astype(
-        np.float32)).to(dev)
-    gt = hash_points_grad_cuda(table.shape, *coords, grid, strides, g)
-    assert cuda.counts()["hash_encode_smooth_bwd"] == \
-        before["hash_encode_smooth_bwd"] + 1
-    gt_ref = hash_points_grad_plain(table.shape, *coords, grid, strides, g)
-    # the same float32 contributions, added by float atomics
-    assert ((gt - gt_ref).norm() / gt_ref.norm()).item() <= 1e-6
+    assert after["hash_encode_smooth_bwd"] == \
+        before["hash_encode_smooth_bwd"] + 2
 
 
 @pytest.mark.cuda
