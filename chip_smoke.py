@@ -77,14 +77,15 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    ``F.grid_sample`` beside the resampler and ``table[rows]`` beside the
    gathers. The resampler's forward is also held bitwise and timed at the
    visibility core's own coordinates and at the distillation's view-stack
-   call, the brick encode forward and backward also at the prop path's
-   final field (8192 rays x 64 samples, stride 1 on every level), the hash
-   encode forward also in the point form at the level-0 proposal field's
-   points (1,048,576 points on 5 levels: the row stores of an odd level
-   count); the
-   encodes' forwards write the lerped, level-concatenated features, and
-   the PyTorch glue they absorbed (each level's lerp and the concatenation,
-   or the point form's permute) is timed beside them. A log line gives
+   call (``F.grid_sample`` beside it at both), the brick encode forward
+   and backward also at the prop path's final field (8192 rays x 64
+   samples, stride 1 on every level), the hash encode forward and backward
+   also in the point form at the level-0 proposal field's points
+   (1,048,576 points on 5 levels: the row stores of an odd level count);
+   the encodes' forwards write the lerped, level-concatenated features,
+   the hash backward reads their cotangent, and the PyTorch glue they
+   absorbed (each level's lerp and the concatenation, or the point form's
+   permute, and their transposes) is timed beside them. A log line gives
    each redesigned kernel's time beside the one ``PERF.md`` recorded
    before its redesign. The step profiles give the watched kernels'
    (the encodes' and the resampler's) time and share of a step's device
@@ -154,9 +155,9 @@ REPLACES = {
     "take_gather": "tools/bench_pallas_encode.py:53",
     "onehot_gather": "tools/bench_pallas_encode.py:80",
     "hash_encode": "perf_tpu/kernels/hashgrid.py:180",
-    "hash_encode_bwd": "perf_tpu/kernels/hashgrid.py:104",
+    "hash_encode_bwd": "perf_tpu/kernels/hashgrid.py:104, :168",
     "hash_encode_smooth": "perf_tpu/kernels/hashgrid.py:128",
-    "hash_encode_smooth_bwd": "perf_tpu/kernels/hashgrid.py:104",
+    "hash_encode_smooth_bwd": "perf_tpu/kernels/hashgrid.py:104, :168",
     "hash_encode_grad": "perf_tpu/fields/sphere_field.py:144",
     "hash_encode_grad_bwd": "perf_tpu/fields/sphere_field.py:144",
     "prop_resample": "perf_tpu/render/prop.py:42",
@@ -223,14 +224,26 @@ FUSION_ITERS = 100           # of the fusion predictors' 1000
 # redesign (H100 80GB HBM3, 700.00 W): printed beside each new time
 WAS_MS = {"bilinear_sample": 0.1929, "brick_encode_bwd": 0.8666,
           "hash_encode": 0.4809, "hash_encode_smooth": 0.3809,
-          "brick_encode": 0.08582}
+          "brick_encode": 0.08582, "hash_encode_bwd": 1.307,
+          "hash_encode_smooth_bwd": 0.8235}
 # the encode wrappers whose launches the step profiles record, and the
-# label of the kernel each launches in a trace
+# labels of the kernels each launches in a trace (the first names it)
 ENCODE_WRAPPERS = {
-    ("hashgrid", "hash_encode_ray_cuda"): "hash_ray_fwd_kernel",
-    ("hashgrid", "hash_points_grad_cuda"): "hash_bwd_kernel",
-    ("brickgrid", "brick_encode_ray_cuda"): "brick_ray_fwd_kernel",
-    ("brickgrid", "brick_points_grad_cuda"): "brick_bwd_kernel"}
+    ("hashgrid", "hash_encode_ray_cuda"): ("hash_ray_fwd_kernel",),
+    ("hashgrid", "hash_encode_ray_bwd_cuda"): ("hash_ray_bwd_kernel",
+                                               "hash_grad_zero_kernel",
+                                               "hash_grad_transpose_kernel"),
+    ("brickgrid", "brick_encode_ray_cuda"): ("brick_ray_fwd_kernel",),
+    ("brickgrid", "brick_points_grad_cuda"): ("brick_bwd_kernel",)}
+# the hash backward against its plain version and a second launch,
+# relative norm of the table gradient: the same float32 contributions,
+# summed in another order (the lerp transpose's rotated sums, a cell's run
+# of lanes, float atomics in both). On an H100 the smoke's shapes read
+# 2.8e-7 to 1.16e-6 over three runs (the most at the proposal field's point
+# form, whose level-0 rows take ~200 contributions each),
+# tools/encode_probe.py --backward up to 9.9e-7 there (the design before:
+# 9.4e-7): held to 2e-6
+HASH_BWD_TOL = 2e-6
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 FLOP/s off
 # the tensor cores, bf16 FLOP/s on them
 HBM_BPS = 3.35e12
@@ -264,16 +277,25 @@ def encode_bound(grid, n: int, s: int, strides: tuple,
     level's corner rows once up to the rows the level holds, the finished
     [n, s, L * F] float32 features out; per coarse point the operations to
     locate it and weight and sum its corners, per strided output value 3
-    for its lerp. Backward: the coordinates and the coarse cotangents in,
-    the float32 table gradient out."""
+    for its lerp. Backward: the coordinates in, the float32 table gradient
+    out (the hash backward's fill of its accumulator, timed with it in the
+    row and in the steps, is that write), and
+    the cotangents in: the brick's coarse points' [points, 2], the hash's
+    features' [n, s, L * F], whose lerp transpose adds per strided value 2
+    products and 2 sums."""
     from perf_tpu_torch.kernels.hashgrid import level_plan
     plan, total = level_plan(grid, strides, n, s)
     coords = 3 * n * s * 4
     brick = grid.fused_field
     if backward:
-        table = (grid.n_levels * grid.n_bricks * 128 if brick
-                 else grid.n_levels * 2 * grid.table_size) * 4
-        return bound(coords + total * 8 + table, total * (64 if brick else 50))
+        if brick:
+            return bound(coords + total * 8
+                         + grid.n_levels * grid.n_bricks * 128 * 4, total * 64)
+        lerped = sum(n * s * 2 * 4 for *_, k, _, _ in plan if k > 1)
+        return bound(coords + n * s * grid.out_dim * 4
+                     + grid.n_levels * 2 * grid.table_size * 4,
+                     total * (62 if grid.interpolation == "smoothstep"
+                              else 50) + lerped)
     if brick:
         # a point reads 8 corners x 2 float32 features (64 B) of one 512 B
         # row of the parameter
@@ -314,7 +336,7 @@ class EncodeRecorder:
     def __enter__(self):
         import importlib
         self.calls, self._saved = {}, []
-        for (mod_name, fn_name), label in ENCODE_WRAPPERS.items():
+        for (mod_name, fn_name), (label, *_) in ENCODE_WRAPPERS.items():
             mod = importlib.import_module(f"perf_tpu_torch.kernels.{mod_name}")
             orig = getattr(mod, fn_name)
             self._saved.append((mod, fn_name, orig))
@@ -824,10 +846,15 @@ def warm_steps(runner) -> dict:
                     step()
             after = cuda.counts()
             encodes = rec.per_label(5)
+            parts = {labels[0]: labels for labels in ENCODE_WRAPPERS.values()}
             profile = profile_device(step, 5, step_ms, unit="step",
-                                     watch=tuple(ENCODE_WRAPPERS.values()))
+                                     watch=sum(parts.values(), ()))
+            watched = profile.get("watched_ms")
             for label, r in encodes.items():
-                r["ms_per_step"] = (profile.get("watched_ms") or {}).get(label)
+                # the hash backward's time holds its fill and its
+                # transpose pass
+                r["ms_per_step"] = (sum(watched[k] for k in parts[label])
+                                    if watched else None)
                 log(f"{phase} step, {label}: {r['ms_per_step']} ms a step "
                     f"over {r['launches_per_step']} launches, in-step bound "
                     f"{r['bound_ms_per_step']:.6f} ms")
@@ -952,6 +979,44 @@ def _hash_fwd_row(table, grid, nx, ny, nz, strides) -> dict:
             table, nx, ny, nz, grid, strides), 3),
         "glue_ms": glue_ms(plan, n, s, nx.device),
         **encode_bound(grid, n, s, strides)}
+
+
+def _hash_bwd_row(grid, nx, ny, nz, strides, gen) -> dict:
+    """``hash_encode_bwd`` (or its smoothstep instance) on the features'
+    bf16-valued cotangent [N, S, L * F], as the fields deliver it, against
+    its plain version (``lerp_levels_transpose``, then the scatter) and
+    against a second run of itself, within HASH_BWD_TOL; timed, with the
+    glue it absorbed (the lerp's and the concatenation's transpose) timed
+    beside it."""
+    import torch
+    from perf_tpu_torch.kernels.hashgrid import (hash_encode_ray_bwd_cuda,
+                                                 hash_encode_ray_bwd_plain,
+                                                 lerp_levels_transpose,
+                                                 level_plan)
+    n, s = nx.shape
+    plan, total = level_plan(grid, strides, n, s)
+    shape = grid.table_shape
+    g = torch.randn((n, s, grid.out_dim), generator=gen, device=nx.device)
+    g = g.to(torch.bfloat16).float()
+    got = hash_encode_ray_bwd_cuda(shape, nx, ny, nz, grid, strides, g)
+    again = hash_encode_ray_bwd_cuda(shape, nx, ny, nz, grid, strides, g)
+    ref = hash_encode_ray_bwd_plain(shape, nx, ny, nz, grid, strides, g)
+    torch.cuda.synchronize()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    rerun = ((again - got).norm() / got.norm()).item()
+    check(rel <= HASH_BWD_TOL and rerun <= HASH_BWD_TOL,
+          f"hash backward ({n} x {s}): rel {rel}, rerun {rerun}")
+    return {
+        "shape": [n, s], "strides": list(strides), "points": total,
+        "max_abs_err": (got - ref).abs().max().item(),
+        "rel_norm_err": rel, "rerun_rel_norm": rerun,
+        "ms": cuda_ms(lambda: hash_encode_ray_bwd_cuda(
+            shape, nx, ny, nz, grid, strides, g), 20),
+        "plain_ms": cuda_ms(lambda: hash_encode_ray_bwd_plain(
+            shape, nx, ny, nz, grid, strides, g), 3),
+        "glue_ms": cuda_ms(lambda: lerp_levels_transpose(
+            g, plan, n, s, total), 20),
+        **encode_bound(grid, n, s, strides, backward=True)}
 
 
 def compare_train_kernels(runner, seed: int) -> dict:
@@ -1441,14 +1506,17 @@ def _bilinear_path_rows(runner, gen) -> dict:
                        device=dev)
     vco = torch.rand((n_views, jc.local_batch, 2), generator=gen, device=dev)
     out = {}
-    for tag, img, co, ref_grid in (
-            ("vis_core", dmaps.contiguous(), coords.contiguous(), True),
-            ("views", views, vco, False)):
+    for tag, img, co in (("vis_core", dmaps.contiguous(), coords.contiguous()),
+                         ("views", views, vco)):
         got = bilinear_sample_cuda(img, co, "border")
         ref = bilinear_sample_plain(img, co, "border")
+        grid = (co.flip(-1) * 2.0 - 1.0)[:, :, None, :]
+        lib = F.grid_sample(img.permute(0, 3, 1, 2), grid, mode="bilinear",
+                            padding_mode="border", align_corners=False)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         check(err == 0.0, f"bilinear_sample ({tag}): {err}")
+        lib_err = (lib[..., 0].permute(0, 2, 1) - ref).abs().max().item()
         m = co.shape[0] * co.shape[1]
         row = {"shape": list(img.shape), "samples": m, "max_abs_err": err,
                "ms": cuda_ms(lambda: bilinear_sample_cuda(img, co, "border"),
@@ -1460,11 +1528,16 @@ def _bilinear_path_rows(runner, gen) -> dict:
                **bound(min(img.numel(), m * 4 * img.shape[-1]) * 4
                        + m * (8 + 4 * img.shape[-1]),
                        m * (8 + 11 * img.shape[-1]))}
-        if ref_grid:
-            grid = (co.flip(-1) * 2.0 - 1.0)[:, :, None, :]
-            row["library_ms"] = cuda_ms(lambda: F.grid_sample(
-                img.permute(0, 3, 1, 2), grid, mode="bilinear",
-                padding_mode="border", align_corners=False), 20)
+        # the yardstick computes the same function (its pixel coordinate
+        # rounds otherwise: ~1e-4 of a pixel at W = 2048); the distance
+        # maps' values reach past 1, so only the view stack's [0, 1]
+        # values are held to 1e-4
+        row["grid_sample_max_abs_diff"] = lib_err
+        if tag == "views":
+            check(lib_err <= 1e-4, f"grid_sample ({tag}) disagrees: {lib_err}")
+        row["library_ms"] = cuda_ms(lambda: F.grid_sample(
+            img.permute(0, 3, 1, 2), grid, mode="bilinear",
+            padding_mode="border", align_corners=False), 20)
         out[tag] = row
     return out
 
@@ -1538,14 +1611,12 @@ def hash_phase(train_overrides: list, serve_overrides: list):
 
 def compare_hash_kernels(runner, served, seed: int) -> dict:
     """The hash encode forward (the lerped, level-concatenated features)
-    and backward against their plain versions at the hash path's
-    geometry-phase shape (8192 rays at the phase budget), at the pinned
-    8192 x 128, and in the point form at a bake chunk of the served scene's
-    corners."""
+    and backward (from the features' cotangent) against their plain
+    versions at the hash path's geometry-phase shape (8192 rays at the
+    phase budget), at the pinned 8192 x 128, and the forward in the point
+    form at a bake chunk of the served scene's corners."""
     import torch
     from perf_tpu_torch.fields import normalize_coords
-    from perf_tpu_torch.kernels.hashgrid import (
-        hash_points_grad_cuda, hash_points_grad_plain, level_plan)
     from perf_tpu_torch.render.snapshot import bake_corners, corner_points
     scene = runner.scene
     grid = scene.field_cfg.grid
@@ -1554,35 +1625,11 @@ def compare_hash_kernels(runner, served, seed: int) -> dict:
     res = {"hash_encode": {}, "hash_encode_bwd": {}}
 
     def measure(tag, nx, ny, nz, strides, backward: bool):
-        n, s = nx.shape
-        _, total = level_plan(grid, strides, n, s)
         res["hash_encode"][tag] = _hash_fwd_row(table, grid, nx, ny, nz,
                                                 strides)
-        if not backward:
-            return
-        # bf16-valued cotangents, as the field delivers them
-        g = torch.randn((total, 2), generator=gen, device=scene.device)
-        g = g.to(torch.bfloat16).float()
-        b_got = hash_points_grad_cuda(table.shape, nx, ny, nz, grid, strides,
-                                      g)
-        b_ref = hash_points_grad_plain(table.shape, nx, ny, nz, grid, strides,
-                                       g)
-        torch.cuda.synchronize()
-        rel = ((b_got - b_ref).norm() / b_ref.norm()).item()
-        # the same float32 contributions, added by float atomics in an
-        # order that changes from run to run
-        check(rel <= 1e-6, f"hash_encode_bwd ({tag}): rel {rel}")
-        res["hash_encode_bwd"][tag] = {
-            "shape": [n, s], "points": total,
-            "max_abs_err": (b_got - b_ref).abs().max().item(),
-            "rel_norm_err": rel,
-            "ms": cuda_ms(lambda: hash_points_grad_cuda(
-                table.shape, nx, ny, nz, grid, strides, g), 20),
-            "plain_ms": cuda_ms(lambda: hash_points_grad_plain(
-                table.shape, nx, ny, nz, grid, strides, g), 3),
-            # per point 18 operations to locate it, 8 x 4 to weight its
-            # corners
-            **encode_bound(grid, n, s, strides, backward=True)}
+        if backward:
+            res["hash_encode_bwd"][tag] = _hash_bwd_row(grid, nx, ny, nz,
+                                                        strides, gen)
 
     for tag, samples in (("scene", None), ("pinned", PINNED[1])):
         *_, nx, ny, nz, strides = _train_inputs(runner, samples, seed)
@@ -1830,8 +1877,7 @@ def compare_sphere_kernels(joint_field, seed: int) -> dict:
     from perf_tpu_torch.kernels.hashgrid import (
         HashGridConfig, hash_encode_grad_cuda, hash_encode_grad_grad_cuda,
         hash_encode_grad_grad_plain, hash_encode_grad_plain,
-        hash_encode_ray_cuda, hash_encode_ray_plain, hash_points_grad_cuda,
-        hash_points_grad_plain, level_plan)
+        hash_encode_ray_cuda, hash_encode_ray_plain, level_plan)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
 
@@ -1863,19 +1909,12 @@ def compare_sphere_kernels(joint_field, seed: int) -> dict:
     coords = [x[:, a:a + 1].contiguous() for a in range(3)]
     strides = (1,) * grid.n_levels
     n = x.shape[0]
-    total = n * grid.n_levels
     got = hash_encode_ray_cuda(table, *coords, grid, strides)
     ref = hash_encode_ray_plain(table, *coords, grid, strides)
-    g = torch.randn((total, 2), generator=gen, device=dev)
-    b_got = hash_points_grad_cuda(table.shape, *coords, grid, strides, g)
-    b_ref = hash_points_grad_plain(table.shape, *coords, grid, strides, g)
     torch.cuda.synchronize()
     # the same corners, smoothstep weights and sums in the same order
     check(torch.equal(got, ref), f"hash_encode_smooth: "
           f"{(got - ref).abs().max().item()}")
-    rel = ((b_got - b_ref).norm() / b_ref.norm()).item()
-    # the same float32 contributions, added by float atomics
-    check(rel <= 1e-6, f"hash_encode_smooth_bwd: rel {rel}")
     res["hash_encode_smooth"] = {
         "points": n, "levels": grid.n_levels, "max_abs_err": 0.0,
         "ms": cuda_ms(lambda: hash_encode_ray_cuda(table, *coords, grid,
@@ -1884,17 +1923,11 @@ def compare_sphere_kernels(joint_field, seed: int) -> dict:
             table, *coords, grid, strides), 3),
         "glue_ms": glue_ms(level_plan(grid, strides, n, 1)[0], n, 1, dev),
         **encode_bound(grid, n, 1, strides)}
+    # the point form's cotangent [n, 1, 32]; the bound counts it in, the
+    # float32 gradient out
     res["hash_encode_smooth_bwd"] = {
-        "points": n, "levels": grid.n_levels,
-        "max_abs_err": (b_got - b_ref).abs().max().item(),
-        "rel_norm_err": rel,
-        "ms": cuda_ms(lambda: hash_points_grad_cuda(
-            table.shape, *coords, grid, strides, g), 20),
-        "plain_ms": cuda_ms(lambda: hash_points_grad_plain(
-            table.shape, *coords, grid, strides, g), 3),
-        # coordinates and cotangents in, the float32 gradient out; per
-        # (point, level) ~30 operations to locate it, 8 x 4 for its corners
-        **bound(n * 12 + total * 8 + table.numel() * 4, total * 62)}
+        "levels": grid.n_levels,
+        **_hash_bwd_row(grid, *coords, strides, gen)}
 
     # the joint predictor's ad field: the encode with derivatives
     grid = joint_field.grid
@@ -2274,10 +2307,11 @@ def compare_prop_kernels(runner, seed: int) -> dict:
     pc = PROP_FIELD_CFGS[0]
     x01 = ((levels[0]["pts"].reshape(-1, 3) - pc.aabb_min)
            / (pc.aabb_max - pc.aabb_min))
-    points_row = _hash_fwd_row(
-        scene.prop_params[0]["table"], pc.grid,
-        *(x01[:, a:a + 1].contiguous() for a in range(3)),
-        (1,) * pc.grid.n_levels)
+    p_coords = [x01[:, a:a + 1].contiguous() for a in range(3)]
+    points_row = _hash_fwd_row(scene.prop_params[0]["table"], pc.grid,
+                               *p_coords, (1,) * pc.grid.n_levels)
+    points_bwd_row = _hash_bwd_row(pc.grid, *p_coords,
+                                   (1,) * pc.grid.n_levels, gen)
     # the rows of the kernels line: level 0's shapes (the largest)
     out = {name: {**r["level0"], **{t: v for t, v in r.items()
                                     if t != "level0"}}
@@ -2285,6 +2319,7 @@ def compare_prop_kernels(runner, seed: int) -> dict:
     out["brick_encode_bwd_prop_final"] = row
     out["brick_encode_prop_final"] = fwd_row
     out["hash_encode_prop_points"] = points_row
+    out["hash_encode_bwd_prop_points"] = points_bwd_row
     return out
 
 
@@ -2550,8 +2585,8 @@ def run(seed: int):
     results.update(compare_prop_kernels(prop_runner, seed))
     for name in ("brick_encode", "brick_encode_bwd"):
         results[name]["prop_final"] = results.pop(f"{name}_prop_final")
-    results["hash_encode"]["prop_points"] = results.pop(
-        "hash_encode_prop_points")
+    for name in ("hash_encode", "hash_encode_bwd"):
+        results[name]["prop_points"] = results.pop(f"{name}_prop_points")
     for name, r in results.items():
         log(f"{name}: {json.dumps(r)}")
     # the redesigned kernels, beside the times PERF.md recorded before their
@@ -2562,7 +2597,10 @@ def run(seed: int):
                        ("hash_encode", ("scene", "pinned", "bake",
                                         "prop_points")),
                        ("hash_encode_smooth", (None,)),
-                       ("brick_encode", ("scene", "pinned", "prop_final"))):
+                       ("brick_encode", ("scene", "pinned", "prop_final")),
+                       ("hash_encode_bwd", ("scene", "pinned",
+                                            "prop_points")),
+                       ("hash_encode_smooth_bwd", (None,))):
         for tag in tags:
             r = results[name] if tag is None else results[name][tag]
             glue = (f", glue absorbed {r['glue_ms']:.5f}" if "glue_ms" in r
@@ -2602,7 +2640,8 @@ def run(seed: int):
             "replaces": REPLACES[name], "path": path, "launches": counted,
             "max_abs_err": top["max_abs_err"],
             **{k: top[k] for k in ("max_rel_err", "loose_share",
-                                   "rel_norm_err", "points", "strides",
+                                   "rel_norm_err", "rerun_rel_norm",
+                                   "points", "strides",
                                    "glue_ms",
                                    "last_bin_equal",
                                    "last_bin_rounded_rays",

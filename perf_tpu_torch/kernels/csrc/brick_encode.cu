@@ -82,9 +82,8 @@ brick_ray_fwd_kernel(TileArgs a, BrickLevels enc) {
 }
 
 // The plan's level of point g (g < 2^31) and the sample it reads: returns
-// the level, sets the sample's flat index ray * n_samples + s. The int form
-// of ray_points.cuh's plan_point: the wrapper keeps points and samples
-// below 2^31.
+// the level, sets the sample's flat index ray * n_samples + s, in int: the
+// wrapper keeps points and samples below 2^31.
 __device__ __forceinline__ int point_sample(int g, const int* lv, int n_levels,
                                             int n_samples, int& si) {
     int l = 0;

@@ -19,10 +19,14 @@ and lerped back to all S; the point form is rays of one sample) with the
 table gradient. CUDA tensors launch the ``hash_encode`` kernels
 (``csrc/hash_encode.cu``; the smoothstep variant counts as
 ``hash_encode_smooth``): the forward writes the lerped, level-concatenated
-features itself, the backward takes the coarse points' cotangents, which
-``lerp_levels_transpose`` forms with the ops autograd runs on the lerp and
-the concatenation. CPU tensors take the plain versions here, which keep
-JAX's order of corner offsets, weight products and sums.
+features itself, the backward takes their cotangent [N, S, L*F] as
+autograd hands it in and forms the coarse points' cotangents itself (the
+lerp's and the concatenation's transpose), with the levels of
+``shared_levels`` summed in a block's shared memory first. CPU tensors
+take the plain versions here, which keep JAX's order of corner offsets,
+weight products and sums: ``hash_encode_ray_bwd_plain`` is
+``lerp_levels_transpose`` (the ops autograd runs on the lerp and the
+concatenation) followed by ``hash_points_grad_plain``.
 ``HashEncode`` gives no position gradient.
 
 The sphere field's ``ad`` gradients take ``hash_encode_grad``: the point
@@ -444,19 +448,75 @@ def hash_encode_ray_cuda(table: torch.Tensor, nx, ny, nz,
     return out
 
 
-def hash_points_grad_cuda(table_shape, nx, ny, nz, cfg: HashGridConfig,
-                          strides: tuple, grad: torch.Tensor):
+def hash_encode_ray_bwd_plain(table_shape, nx, ny, nz, cfg: HashGridConfig,
+                              strides: tuple, grad: torch.Tensor):
+    """Table gradient [L, F, T] float32 from the features' cotangent [N, S,
+    L*F]: the coarse points' cotangents (``lerp_levels_transpose``), then
+    their scatter (``hash_points_grad_plain``)."""
+    n, s = nx.shape
+    plan, total = level_plan(cfg, strides, n, s)
+    return hash_points_grad_plain(
+        table_shape, nx, ny, nz, cfg, strides,
+        lerp_levels_transpose(grad, plan, n, s, total))
+
+
+# the backward's shared-memory levels (tools/encode_probe.py --backward,
+# PERF.md): the bytes a block gives them, and the points a row a level
+# needs to take a block's copy (on an H100 level 0's copy took 4-10% off
+# the point forms, 46-213 points a row, and added 2% to the hash geometry
+# plan's 15)
+SHARED_LEVEL_BYTES = 48 * 1024
+SHARED_MIN_POINTS = 32
+
+
+def shared_levels(plan, n_rays: int,
+                  budget: int = SHARED_LEVEL_BYTES) -> tuple:
+    """The levels of a level plan (``level_plan``'s rows) whose gradient
+    the backward kernel sums in a block's shared memory before it adds them
+    to the table's: dense levels (the plan's hashed column, which is
+    ``level_hashed``) with at least SHARED_MIN_POINTS of the plan's points
+    a row, coarsest first, while their rows x 2 float32 fit in ``budget``
+    bytes together."""
+    picked, used = [], 0
+    for lvl, (_, look, hashed, _, npts, _) in enumerate(plan):
+        rows = look ** 3
+        if hashed or n_rays * npts < SHARED_MIN_POINTS * rows:
+            continue
+        if used + rows * 8 > budget:
+            break
+        picked.append(lvl)
+        used += rows * 8
+    return tuple(picked)
+
+
+@functools.lru_cache(maxsize=64)
+def _shared_slab(cfg: HashGridConfig, strides: tuple, n_rays: int,
+                 n_samples: int) -> tuple:
+    """(bit mask of ``shared_levels``, their rows x 2 float32) of a backward
+    launch, made once per plan."""
+    shared = shared_levels(level_plan(cfg, strides, n_rays, n_samples)[0],
+                           n_rays)
+    return (sum(1 << lvl for lvl in shared),
+            sum(cfg.level_lookup(lvl)[1] ** 3 * 2 for lvl in shared))
+
+
+def hash_encode_ray_bwd_cuda(table_shape, nx, ny, nz, cfg: HashGridConfig,
+                             strides: tuple, grad: torch.Tensor):
     _check_kernel_args(cfg, table_shape, (nx, ny, nz))
-    levels, total = kernel_plan(cfg, strides, nx)
+    levels, per_ray = ray_kernel_plan(cfg, strides, nx)
     dev = nx.device
-    grad = grad.contiguous()
-    if grad.data_ptr() % 8:          # the kernel reads float2
-        grad = grad.clone()
-    cuda.check(grad, "grad", torch.float32, (total, 2), dev)
-    gt = torch.zeros(table_shape, dtype=torch.float32, device=dev)
-    _ENCODE_BWD[_smooth(cfg)].launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
-                       nx.shape[1], cfg.table_size, levels.data_ptr(),
-                       cfg.n_levels, total, grad.data_ptr(), gt.data_ptr())
+    n, s = nx.shape
+    grad = grad.contiguous()         # autograd's cotangent is: no copy
+    cuda.check(grad, "grad", torch.float32, (n, s, cfg.out_dim), dev)
+    mask, slab = _shared_slab(cfg, tuple(strides), n, s)
+    gt = torch.empty(table_shape, dtype=torch.float32, device=dev)
+    # the kernel's float2 accumulator [L, T, 2], zeroed by the launch
+    acc = torch.empty((cfg.n_levels, cfg.table_size, 2), dtype=torch.float32,
+                      device=dev)
+    _ENCODE_BWD[_smooth(cfg)].launch(
+        nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), n, s, per_ray,
+        cfg.table_size, levels.data_ptr(), cfg.n_levels, grad.data_ptr(),
+        mask, slab, acc.data_ptr(), gt.data_ptr())
     return gt
 
 
@@ -468,7 +528,8 @@ _ENCODE = tuple(cuda.register(cuda.CudaKernel(
     for tag in ("", "_smooth"))
 _ENCODE_BWD = tuple(cuda.register(cuda.CudaKernel(
     f"hash_encode{tag}_bwd", "hash_encode.cu", f"hash_encode{tag}_bwd_launch",
-    _ARGS + [cuda.I32, cuda.P, cuda.I32, cuda.I64, cuda.P, cuda.P]))
+    _ARGS + [cuda.I32, cuda.I32, cuda.I32, cuda.P, cuda.I32, cuda.P,
+             cuda.I32, cuda.I32, cuda.P, cuda.P]))
     for tag in ("", "_smooth"))
 
 
@@ -476,8 +537,8 @@ class HashEncode(torch.autograd.Function):
     """Features [N, S, L*F] of ray-structured coordinates [N, S] with the
     table gradient; the coordinates get none (the NeRF path never needs
     the position gradient). CUDA tensors launch the kernels, CPU tensors
-    take the plain versions; the backward forms the coarse points'
-    cotangents (``lerp_levels_transpose``) and scatters them."""
+    take the plain versions; the backward kernel takes the features'
+    cotangent as it comes."""
 
     @staticmethod
     def forward(ctx, table, nx, ny, nz, cfg, strides):
@@ -493,11 +554,9 @@ class HashEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         nx, ny, nz = ctx.saved_tensors
-        n, s = nx.shape
-        plan, total = level_plan(ctx.cfg, ctx.strides, n, s)
-        g = lerp_levels_transpose(grad, plan, n, s, total)
-        fn = hash_points_grad_cuda if grad.is_cuda else hash_points_grad_plain
-        gt = fn(ctx.table_shape, nx, ny, nz, ctx.cfg, ctx.strides, g)
+        fn = (hash_encode_ray_bwd_cuda if grad.is_cuda
+              else hash_encode_ray_bwd_plain)
+        gt = fn(ctx.table_shape, nx, ny, nz, ctx.cfg, ctx.strides, grad)
         return gt, None, None, None, None, None
 
 

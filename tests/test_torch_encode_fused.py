@@ -19,7 +19,12 @@ coordinates exactly at 0 and 1 and beyond both faces:
 - the table gradient against autograd of the composition the port ran
   before (an encode of the coarse points [points, 2] with the same
   backward, then ``lerp_levels``), bitwise;
-- ``lerp_levels_transpose`` against autograd of ``lerp_levels``, bitwise.
+- ``lerp_levels_transpose`` against autograd of ``lerp_levels``, bitwise;
+- the plain backward the hash kernel is held to on the card
+  (``hash_encode_ray_bwd_plain``, from the features' cotangent) against
+  ``jax.vjp`` at the fields' own grids: the proposal field's 5-level grid
+  at stride 1, the sphere field's smoothstep point form and the NGP
+  field's grid at a strided plan (1e-5 relative norm).
 
 Inputs come from NumPy with a seed. JAX runs eagerly for the hash grid (its
 jitted encode rounds differently from the op-by-op one the port follows
@@ -37,6 +42,7 @@ import torch
 from perf_tpu.kernels import brickgrid as JB
 from perf_tpu.kernels import hashgrid as JH
 
+from perf_tpu_torch.fields.ngp import NGPDensityFieldConfig
 from perf_tpu_torch.kernels import cuda
 from perf_tpu_torch.kernels import brickgrid as TB
 from perf_tpu_torch.kernels import hashgrid as TH
@@ -169,6 +175,59 @@ def test_hash_encode_matches_jax_and_the_composition(plan, interpolation):
     assert torch.equal(got.detach().reshape(out.shape), out)
     assert torch.equal(g_got, g_comp)
     assert all(v == 0 for v in cuda.counts().values())   # the plain path
+
+
+# the fields' own grids for the backward: (grid, samples a ray, strides).
+# Cut to keep JAX's eager ops on one core within seconds: the sphere
+# field's grid at fine_res 4096 to its first 6 levels (its growth kept) in
+# 2^15 rows (levels 0-1 dense), the NGP field's grid to its first 3 levels
+# (res 16 .. 33) in 2^13 rows (level 0 dense) at a 4e-3 step's strides 8
+# and 4
+_NGP = TH.HashGridConfig(n_levels=3, log2_table_size=13)
+_SPHERE = dataclasses.replace(
+    TH.HashGridConfig.sphere_field(fine_res=4096, log2_table_size=15),
+    n_levels=6)
+BWD_GRIDS = {
+    # a proposal field's [5, 2, 2^17] grid (levels 0-2 dense) at stride 1
+    "prop_stride1": (NGPDensityFieldConfig().grid, 16, (1,) * 5),
+    # the sphere field's smoothstep grid, the point form
+    "sphere_points": (_SPHERE, 1, (1,) * 6),
+    "ngp_strided": (_NGP, 16, TH.level_strides(_NGP, 4e-3, 16)),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_GRIDS))
+def test_hash_encode_ray_bwd_plain_matches_jax_vjp(case):
+    """The plain backward from the features' cotangent against JAX's
+    ``hash_encode_ray`` / ``hash_encode_coords`` VJP (the same float32
+    contributions, scatter-added in another order); the coordinates start
+    at and cross the box's faces."""
+    grid, s, strides = BWD_GRIDS[case]
+    # _inputs' shapes: JAX compiles its eager ops once a shape
+    n = 37 if s == 1 else 11
+    rng = np.random.default_rng(30 + len(case))
+    pts = np.sort(rng.uniform(-0.05, 1.05, (n, s, 3)), axis=1)
+    pts.reshape(-1, 3)[::5] = np.array([0.0, 1.0, -0.2, 1.2, 0.5])[
+        rng.integers(0, 5, pts.reshape(-1, 3)[::5].shape)]
+    x, y, z = (np.ascontiguousarray(pts[..., a], np.float32) for a in range(3))
+    cot = rng.standard_normal((n, s, grid.out_dim)).astype(np.float32)
+    table = np.zeros(grid.table_shape, np.float32)
+    jx, jy, jz = map(jnp.asarray, (x, y, z))
+    if s == 1:
+        def j_fn(t):
+            return JH.hash_encode_coords(t, jx[:, 0], jy[:, 0], jz[:, 0],
+                                         _j_hash(grid))
+        j_cot = cot[:, 0]
+    else:
+        def j_fn(t):
+            return JH.hash_encode_ray(t, jx, jy, jz, _j_hash(grid), strides)
+        j_cot = cot
+    (g_ref,) = jax.vjp(j_fn, jnp.asarray(table))[1](jnp.asarray(j_cot))
+    g_got = TH.hash_encode_ray_bwd_plain(
+        grid.table_shape, *(torch.from_numpy(a) for a in (x, y, z)), grid,
+        strides, torch.from_numpy(cot))
+    assert np.abs(np.asarray(g_ref)).max() > 0.0
+    assert _rel(g_got.numpy(), g_ref) <= 1e-5
 
 
 def test_brick_encode_matches_jax_and_the_composition():

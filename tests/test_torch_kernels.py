@@ -63,8 +63,8 @@ from perf_tpu_torch.kernels.hashgrid import (
     HashGridConfig, HashEncode, hash_encode, hash_encode_grad,
     hash_encode_grad_cuda, hash_encode_grad_grad_cuda,
     hash_encode_grad_grad_plain, hash_encode_grad_plain, hash_encode_ray,
-    hash_encode_ray_cuda, hash_encode_ray_plain, hash_points_grad_cuda,
-    hash_points_grad_plain)
+    hash_encode_ray_bwd_cuda, hash_encode_ray_bwd_plain, hash_encode_ray_cuda,
+    hash_encode_ray_plain, level_strides, shared_levels)
 from perf_tpu_torch.utils import (cube_room_occ_grid, random_field_params,
                                   render_cube_room_pano)
 from perf_tpu_torch.data import Dataset
@@ -209,13 +209,15 @@ def fwd_case(name: str, n_levels: int, device):
 
 def check_forward_and_grad(fn, plain, grad_kernel, grad_plain, name: str,
                            table, coords, grid, strides, tol: float,
-                           seed: int):
+                           seed: int, fused: bool = False):
     """The Function ``fn`` on the card against the plain composition
     ``plain`` (within ``tol``; 0.0: bitwise), one launch of the forward
     kernel ``name``; the table gradient through it against the plain
-    backward ``grad_plain`` and against the [P, 2] route's backward kernel
-    ``grad_kernel``, both on the coarse cotangents that autograd of the
-    plain lerp and concatenation gives."""
+    backward ``grad_plain`` and against a second call of a backward kernel
+    ``grad_kernel``: on the coarse cotangents that autograd of the plain
+    lerp and concatenation gives (the brick's [P, 2] route, within 1e-6),
+    or, ``fused``, on the features' cotangent (the hash backward, within
+    HASH_BWD_TOL)."""
     x, y, z = coords
     n, s = x.shape
     t = table.clone().requires_grad_(True)
@@ -235,11 +237,12 @@ def check_forward_and_grad(fn, plain, grad_kernel, grad_plain, name: str,
     (coarse,) = torch.autograd.grad(lerp_levels(leaf, plan, n, s), leaf, g)
     assert torch.equal(lerp_levels_transpose(g, plan, n, s, total), coarse)
     cs = [a.contiguous() for a in coords]
+    cot, bwd_tol = (g, HASH_BWD_TOL) if fused else (coarse, 1e-6)
     # the same contributions; float atomics add them in an order that
     # changes from run to run
-    for gt_ref in (grad_plain(table.shape, *cs, grid, strides, coarse),
-                   grad_kernel(table.shape, *cs, grid, strides, coarse)):
-        assert ((t.grad - gt_ref).norm() / gt_ref.norm()).item() <= 1e-6
+    for gt_ref in (grad_plain(table.shape, *cs, grid, strides, cot),
+                   grad_kernel(table.shape, *cs, grid, strides, cot)):
+        assert ((t.grad - gt_ref).norm() / gt_ref.norm()).item() <= bwd_tol
 
 
 def _rays(n: int, seed: int, device):
@@ -304,14 +307,14 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA"):
         hash_encode_ray_cuda(h_table, x, x, x, HASH, (1,) * 6)
     with pytest.raises(ValueError, match="CUDA"):
-        hash_points_grad_cuda(h_table.shape, x, x, x, HASH, (1,) * 6,
-                              torch.zeros((6 * 32, 2)))
+        hash_encode_ray_bwd_cuda(h_table.shape, x, x, x, HASH, (1,) * 6,
+                                 torch.zeros((4, 8, 12)))
     smooth = dataclasses.replace(HASH, interpolation="smoothstep")
     with pytest.raises(ValueError, match="CUDA"):
         hash_encode_ray_cuda(h_table, x, x, x, smooth, (1,) * 6)
     with pytest.raises(ValueError, match="CUDA"):
-        hash_points_grad_cuda(h_table.shape, x, x, x, smooth, (1,) * 6,
-                              torch.zeros((6 * 32, 2)))
+        hash_encode_ray_bwd_cuda(h_table.shape, x, x, x, smooth, (1,) * 6,
+                                 torch.zeros((4, 8, 12)))
     cubic = dataclasses.replace(HASH, interpolation="cubic")
     with pytest.raises(ValueError, match="only"):
         hash_encode_ray_cuda(h_table, x, x, x, cubic, (1,) * 6)
@@ -360,6 +363,50 @@ def test_bilinear_kernels_refuse_sizes_past_int32():
         _check_sizes(1, 8, 8, 3, 2 ** 31 // 3 + 1)
     with pytest.raises(ValueError, match="at most 65535 images"):
         _check_sizes(65536, 8, 8, 1, 16)
+
+
+def test_shared_levels_are_the_dense_levels_within_the_budget():
+    """The hash backward's host planner: dense levels only (the plan's
+    hashed column, ``level_hashed``), each with SHARED_MIN_POINTS of the
+    plan's points a row, their rows x 2 float32 within the budget; every
+    dense level with points and bytes to spare."""
+    from perf_tpu_torch.fields.ngp import NGPDensityFieldConfig
+    from perf_tpu_torch.kernels.hashgrid import SHARED_MIN_POINTS
+    ngp, sphere = HashGridConfig(), HashGridConfig.sphere_field(fine_res=4096)
+    prop = NGPDensityFieldConfig(max_res=256).grid
+    many = 1 << 26
+    for grid in (ngp, NGPDensityFieldConfig().grid, prop, sphere, HASH,
+                 HASH5, HASH_SPHERE):
+        dense = tuple(lvl for lvl in range(grid.n_levels)
+                      if not grid.level_hashed(lvl))
+        for n, s, strides in ((many, 1, (1,) * grid.n_levels),
+                              (8192, 128, level_strides(grid, 5e-4, 128)),
+                              (2049, 1, (1,) * grid.n_levels)):
+            plan, _ = level_plan(grid, strides, n, s)
+            if n == many:
+                assert shared_levels(plan, n, 1 << 40) == dense
+            for budget in (0, 39303, 39304, 48 * 1024, 160 * 1024, 232448):
+                got = shared_levels(plan, n, budget)
+                rows = [plan[lvl][1] ** 3 for lvl in got]
+                assert set(got) <= set(dense)
+                assert sum(rows) * 8 <= budget
+                assert all(n * plan[lvl][4] >= SHARED_MIN_POINTS * r
+                           for lvl, r in zip(got, rows))
+    # the NGP grid: level 0's 17^3 rows take 39,304 bytes, level 1's 24^3
+    # 110,592
+    plan = level_plan(ngp, (1,) * 16, many, 1)[0]
+    assert shared_levels(plan, many, 39303) == ()
+    assert shared_levels(plan, many, 48 * 1024) == (0,)
+    assert shared_levels(plan, many, 160 * 1024) == (0, 1)
+    # the smoke's shapes with the default budget: the hash geometry plan's
+    # level 0 has 15 points a row (9 a ray at stride 16), the proposal
+    # field's point form 213, the refiner's 47
+    geo = level_plan(ngp, level_strides(ngp, 5e-4, 128), 8192, 128)[0]
+    assert shared_levels(geo, 8192) == ()
+    assert shared_levels(level_plan(prop, (1,) * 5, 1 << 20, 1)[0],
+                         1 << 20) == (0,)
+    assert shared_levels(level_plan(sphere, (1,) * 16, 229376, 1)[0],
+                         229376) == (0,)
 
 
 def test_plain_path_counts_no_launch():
@@ -751,6 +798,73 @@ def test_row_gather_kernels_equal_plain_bitwise(gpu, block):
 # 1024 rows): an odd level count, whose rows the forward writes as float2s
 HASH5 = dataclasses.replace(HASH, n_levels=5)
 
+# the hash backward (the features' cotangent in) against its plain version
+# (lerp_levels_transpose, then the scatter): relative norm of the table
+# gradient. The same float32 contributions, summed in another order: the
+# kernel starts each lane's lerp-transpose sum at another sample, sums a
+# cell's run of lanes before its atomics, and float atomics add in an
+# order that changes from run to run.
+HASH_BWD_TOL = 1e-6
+
+# hard inputs of the hash backward at the fields' own grids (hash_bwd_case)
+HASH_BWD_CASES = ("production", "mostly_zero", "contention",
+                  "misaligned_cotangent", "smooth_points")
+# their tolerances, from six runs on an H100 (the readings this test
+# prints): at most 1.03e-7 against the plain version and 2.9e-8 against a
+# second launch, but 1.11e-6 and 4.8e-7 in the contention case, whose
+# level-0 and level-1 rows take the ~10^4 contributions of all 1037 rays
+# each, summed in another order on every run
+HASH_BWD_CASE_TOL = {**dict.fromkeys(HASH_BWD_CASES, HASH_BWD_TOL),
+                     "contention": 4e-6}
+
+
+def hash_bwd_case(name: str, device):
+    """(grid, [x, y, z] float32 [N, S], strides, cotangent [N, S, 2L]) from
+    a seed. ``production``: the NGP field's full grid (16 levels, 2^18
+    rows), 1037 rays x 128 samples 2.5e-4 apart (the 5e-4 march step in
+    [0, 1] coordinates) at that step's strides; ``mostly_zero``: the same
+    with each ray's cotangent 0 past its first 0-16 samples and four rays
+    in five all 0 (the hash steps' padded budget); ``contention``: every
+    ray inside one level-0 cell (rays from [0.50, 0.51]^3, 0.032 long);
+    ``misaligned_cotangent``: the production input with the cotangent 4
+    bytes past a 16-byte boundary; ``smooth_points``: the sphere field's
+    smoothstep grid at fine_res 4096 (2^19 rows) in the point form, 4099
+    points on and beyond the box's faces."""
+    rng = np.random.default_rng(90 + HASH_BWD_CASES.index(name))
+    if name == "smooth_points":
+        grid = HashGridConfig.sphere_field(fine_res=4096)
+        x = _sphere_points(4099, 5)
+        coords = [torch.from_numpy(np.ascontiguousarray(x[:, a:a + 1]))
+                  .to(device) for a in range(3)]
+        n, s, strides = 4099, 1, (1,) * grid.n_levels
+    else:
+        grid = HashGridConfig()
+        n, s = 1037, 128
+        strides = level_strides(grid, 5e-4, s)
+        lo, hi = (0.5, 0.51) if name == "contention" else (0.1, 0.6)
+        o = rng.uniform(lo, hi, (n, 1, 3))
+        d = rng.standard_normal((n, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = (0.0 if name == "contention" else rng.uniform(0.0, 0.3, (n, 1, 1))
+             ) + 2.5e-4 * np.arange(s)[None, :, None]
+        pts = o + d * t
+        coords = [torch.from_numpy(np.ascontiguousarray(pts[..., a],
+                                                        np.float32))
+                  .to(device) for a in range(3)]
+    cot = rng.standard_normal((n, s, grid.out_dim)).astype(np.float32)
+    if name == "mostly_zero":
+        keep = rng.integers(0, 17, (n, 1, 1))
+        keep[rng.uniform(size=n) < 0.8] = 0
+        cot *= np.arange(s)[None, :, None] < keep
+    g = torch.from_numpy(cot).to(device)
+    if name == "misaligned_cotangent":
+        buf = torch.empty(g.numel() + 5, device=device)
+        view = buf[1:1 + g.numel()].view(g.shape)
+        view.copy_(g)
+        assert view.data_ptr() % 16 == 4
+        g = view
+    return grid, coords, strides, g
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", [HASH, HASH5], ids=["6_levels", "5_levels"])
@@ -758,17 +872,18 @@ HASH5 = dataclasses.replace(HASH, n_levels=5)
 def test_hash_encode_kernels_match_plain(gpu, case, grid):
     """The forward writes the lerped, level-concatenated features: the same
     corners, weights, sums and lerp in the same order (no contraction), so
-    bitwise; the gradient through ``HashEncode`` equals the [P, 2]
-    route's."""
+    bitwise; the gradient through ``HashEncode`` (the fused backward on the
+    features' cotangent) agrees with the plain backward and with a second
+    launch."""
     dev = gpu[0]
     rng = np.random.default_rng(FWD_CASES.index(case))
     *coords, strides = fwd_case(case, grid.n_levels, dev)
     table = torch.from_numpy(rng.uniform(-0.1, 0.1, grid.table_shape).astype(
         np.float32)).to(dev)
     check_forward_and_grad(
-        hash_encode_ray, hash_encode_ray_plain, hash_points_grad_cuda,
-        hash_points_grad_plain, "hash_encode", table, coords, grid, strides,
-        0.0, FWD_CASES.index(case))
+        hash_encode_ray, hash_encode_ray_plain, hash_encode_ray_bwd_cuda,
+        hash_encode_ray_bwd_plain, "hash_encode", table, coords, grid,
+        strides, 0.0, FWD_CASES.index(case), fused=True)
 
 
 def _sphere_points(n: int, seed: int) -> np.ndarray:
@@ -788,7 +903,8 @@ def test_hash_encode_smooth_kernels_match_plain(gpu, case):
     and on the sphere field's point form (directions on and beyond the
     box's faces through ``hash_encode``): bitwise its plain version, one
     ``hash_encode_smooth`` launch and no linear one; the gradient through
-    ``HashEncode`` equals the [P, 2] route's."""
+    ``HashEncode`` (the fused backward) agrees with the plain backward and
+    with a second launch."""
     dev = gpu[0]
     grid = HASH_SPHERE
     rng = np.random.default_rng(7 + len(case))
@@ -809,13 +925,41 @@ def test_hash_encode_smooth_kernels_match_plain(gpu, case):
         *coords, strides = fwd_case(case, grid.n_levels, dev)
     before = cuda.counts()
     check_forward_and_grad(
-        hash_encode_ray, hash_encode_ray_plain, hash_points_grad_cuda,
-        hash_points_grad_plain, "hash_encode_smooth", table, coords, grid,
-        strides, 0.0, len(case))
+        hash_encode_ray, hash_encode_ray_plain, hash_encode_ray_bwd_cuda,
+        hash_encode_ray_bwd_plain, "hash_encode_smooth", table, coords, grid,
+        strides, 0.0, len(case), fused=True)
     after = cuda.counts()
     assert after["hash_encode"] == before["hash_encode"]
     assert after["hash_encode_smooth_bwd"] == \
         before["hash_encode_smooth_bwd"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HASH_BWD_CASES)
+def test_hash_encode_bwd_kernel_matches_plain_at_field_sizes(gpu, case):
+    """The fused backward at the fields' own grids (hash_bwd_case): within
+    HASH_BWD_TOL of its plain version and of a second launch, one launch
+    of its entry point each (linear, or smoothstep for the sphere
+    field's)."""
+    dev = gpu[0]
+    grid, coords, strides, g = hash_bwd_case(case, dev)
+    name = ("hash_encode_smooth_bwd" if grid.interpolation == "smoothstep"
+            else "hash_encode_bwd")
+    shape = grid.table_shape
+    before = cuda.counts()
+    got = hash_encode_ray_bwd_cuda(shape, *coords, grid, strides, g)
+    again = hash_encode_ray_bwd_cuda(shape, *coords, grid, strides, g)
+    after = cuda.counts()
+    assert after[name] == before[name] + 2
+    assert sum(after.values()) == sum(before.values()) + 2
+    ref = hash_encode_ray_bwd_plain(shape, *coords, grid, strides, g)
+    assert ref.abs().max().item() > 0.0
+    rel = [((got - other).norm() / other.norm()).item()
+           for other in (ref, again)]
+    # the readings behind HASH_BWD_CASE_TOL (shown by pytest -s)
+    print(f"{case}: kernel vs plain {rel[0]:.3e}, vs a second launch "
+          f"{rel[1]:.3e}")
+    assert max(rel) <= HASH_BWD_CASE_TOL[case]
 
 
 @pytest.mark.cuda
