@@ -91,7 +91,19 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    (the encodes' and the resampler's) time and share of a step's device
    time, and, for the encodes, the shapes of their launches inside the
    steps (recorded by wrapping the encode wrappers in the smoke) and the
-   bound at those shapes beside the time.
+   bound at those shapes beside the time. The NGP MLP kernels (K2 forward
+   and backward with trunc_exp / sigmoid and the AABB select,
+   ``kernels/ngp_mlp.py``) are held against their plain versions for the
+   density head at the brick and hash steps' shapes on their trained
+   fields, the colour head at the steps' window gather, and the proposal
+   head at level 0's points of a prop step (forward: at most 0.1% of the
+   outputs off by > 1e-4 relative; backward: dx, dW0, dW1 bf16-valued
+   within one bf16 ulp, the last layer within 1e-5 relative norm, a
+   second launch bitwise), each timed beside its plain version and the
+   PyTorch route it replaced (the plain forward under autograd and its
+   autograd backward); the step profiles give the MLP's launches, bound
+   and time a step (recorded by wrapping its wrappers), the hash bake's
+   MLP launches are counted and the prop path's are checked per head.
 
 Launch counts are zeroed just before each path (gather, train, serve,
 anchor, hash, sphere: its CLI run and its API run, prop) and read just
@@ -109,6 +121,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -165,12 +178,17 @@ REPLACES = {
     "prop_weights_bwd": "perf_tpu/render/prop.py:66",
     "prop_loss": "perf_tpu/render/prop.py:142",
     "prop_loss_bwd": "perf_tpu/render/prop.py:142",
+    "ngp_mlp": "perf_tpu/fields/mlp.py:57, :44",
+    "ngp_mlp_bwd": "perf_tpu/fields/mlp.py:57, :44",
 }
 SERVE_KERNELS = ("field_eval", "bake_scatter_pack", "march_windows",
                  "snapshot_composite")
+# the NGP MLP's kernels (K2: the density, colour and proposal heads)
+MLP_KERNELS = ("ngp_mlp", "ngp_mlp_bwd")
 TRAIN_KERNELS = ("brick_encode", "brick_encode_bwd",
                  "march_windows_stratified", "count_windows",
-                 "shade_composite", "shade_composite_bwd", "occ_grid")
+                 "shade_composite", "shade_composite_bwd",
+                 "occ_grid") + MLP_KERNELS
 # the anchor path (bootstrap, raw fit, anchors, render_dense) runs these and
 # every training and snapshot kernel
 ANCHOR_KERNELS = ("occ_prune", "brick_encode_grad", "brick_encode_grad_bwd",
@@ -186,7 +204,7 @@ GATHER_SAMPLES = 524288
 # field's
 HASH_KERNELS = ("hash_encode", "hash_encode_bwd")
 HASH_ANCHORS = 1
-HASH_PATH = HASH_KERNELS + (
+HASH_PATH = HASH_KERNELS + MLP_KERNELS + (
     "march_windows_stratified", "count_windows", "shade_composite",
     "shade_composite_bwd", "occ_grid", "bake_scatter_pack", "march_windows",
     "snapshot_composite")
@@ -210,8 +228,8 @@ SPHERE_API_PATH = SMOOTH_KERNELS + (
 # final field's encode, and none of the occupancy path's kernels
 PROP_KERNELS = ("prop_resample", "prop_weights", "prop_weights_bwd",
                 "prop_loss", "prop_loss_bwd")
-PROP_PATH = PROP_KERNELS + ("hash_encode", "hash_encode_bwd", "brick_encode",
-                            "brick_encode_bwd")
+PROP_PATH = PROP_KERNELS + MLP_KERNELS + (
+    "hash_encode", "hash_encode_bwd", "brick_encode", "brick_encode_bwd")
 OCC_KERNELS = ("march_windows", "march_windows_stratified", "count_windows",
                "shade_composite", "shade_composite_bwd", "occ_grid",
                "occ_prune", "bake_scatter_pack", "snapshot_composite",
@@ -235,6 +253,15 @@ ENCODE_WRAPPERS = {
                                                "hash_grad_transpose_kernel"),
     ("brickgrid", "brick_encode_ray_cuda"): ("brick_ray_fwd_kernel",),
     ("brickgrid", "brick_points_grad_cuda"): ("brick_bwd_kernel",)}
+# the MLP kernels' labels in a trace: the forward, the backward (its tiles
+# and the sum of its blocks' partials)
+MLP_LABELS = {"fwd": ("mlp_fwd_kernel",),
+              "bwd": ("mlp_bwd_kernel", "mlp_grad_reduce_kernel")}
+# the MLP forward against its plain version: float32 sums in another order
+# than cuBLAS's put a hidden unit on the other side of a bf16 rounding tie
+# now and then (field_eval's forward reads 0.042% of outputs off by > 1e-4);
+# at most this share of outputs may be off by > 1e-4 relative
+MLP_LOOSE_SHARE = 1e-3
 # the hash backward against its plain version and a second launch,
 # relative norm of the table gradient: the same float32 contributions,
 # summed in another order (the lerp transpose's rotated sums, a cell's run
@@ -369,6 +396,79 @@ class EncodeRecorder:
         return out
 
 
+def mlp_bound(head, m: int, din: int, backward: bool = False) -> dict:
+    """The bound of a head's MLP at m points of din inputs. Bytes: x, sel
+    and the weights in; forward the activated channels and the raw outputs
+    out; backward the raw outputs and their cotangents in, dx and the
+    weights' gradients out. Operations: the hidden layers' products (bf16 x
+    bf16 with float32 sums in the bf16 heads: the tensor cores' work; the
+    proposal head's float32) once forward and three times backward (their
+    recompute, the cotangents of each hidden layer's input, the weights'
+    gradients), the last layer's float32 products once forward and twice
+    backward, and 4 float32 operations an output for the epilogue."""
+    c = head.channels
+    n_w = din * 64 + (head.hidden - 1) * 64 * 64 + 64 * c
+    hidden = 2 * m * (din * 64 + (head.hidden - 1) * 64 * 64)
+    last = 2 * m * 64 * c
+    nbytes = m * din * 4 + m + n_w * 4 + 2 * c * m * 4
+    if backward:
+        nbytes += m * din * 4 + n_w * 4
+        hidden, last = 3 * hidden, 2 * last
+    f32 = last + 4 * c * m
+    return bound(nbytes, f32 if head.bf16 else f32 + hidden,
+                 hidden if head.bf16 else 0)
+
+
+class MlpRecorder:
+    """Records, inside ``with``, every call of the MLP kernels' wrappers
+    (``ngp_mlp_fwd_cuda`` / ``ngp_mlp_bwd_cuda``; the smoke swaps the
+    module attributes ``ngp_head`` and the autograd Function call, as
+    ``EncodeRecorder`` does): per direction, head and input shape, its
+    launches."""
+
+    NAMES = {"fwd": "ngp_mlp_fwd_cuda", "bwd": "ngp_mlp_bwd_cuda"}
+
+    def __enter__(self):
+        from perf_tpu_torch.kernels import ngp_mlp
+        self.calls, self._mod = {}, ngp_mlp
+        self._saved = {d: getattr(ngp_mlp, n) for d, n in self.NAMES.items()}
+        for direction, orig in self._saved.items():
+            def wrapped(ws, x, sel, *rest, orig=orig, direction=direction,
+                        **kw):
+                head = rest[0] if direction == "fwd" else rest[2]
+                key = (direction, head, tuple(x.shape))
+                self.calls[key] = self.calls.get(key, 0) + 1
+                return orig(ws, x, sel, *rest, **kw)
+            setattr(ngp_mlp, self.NAMES[direction], wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for direction, orig in self._saved.items():
+            setattr(self._mod, self.NAMES[direction], orig)
+
+    def launches(self) -> dict:
+        """"direction/head" -> launches."""
+        out = {}
+        for (direction, head, _), count in self.calls.items():
+            key = f"{direction}/{head.name}"
+            out[key] = out.get(key, 0) + count
+        return out
+
+    def per_direction(self, steps: int) -> dict:
+        """direction -> launches a step, bound ms a step and the shapes
+        (head, [m, din], launches a step) it launched at."""
+        out = {d: {"launches_per_step": 0.0, "bound_ms_per_step": 0.0,
+                   "shapes": []} for d in self.NAMES}
+        for (direction, head, (m, din)), count in self.calls.items():
+            rec = out[direction]
+            rec["launches_per_step"] += count / steps
+            rec["bound_ms_per_step"] += mlp_bound(
+                head, m, din, backward=direction == "bwd")["bound_ms"] \
+                * count / steps
+            rec["shapes"].append([head.name, [m, din], count / steps])
+        return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches after one warm-up,
     from CUDA events. A ~10 ms spin kernel ahead of the start event lets
@@ -420,21 +520,28 @@ def profile_device(fn, reps: int, host_ms_each: float,
     card's busy time per call (union of its kernel and copy intervals), the
     number of device operations (kernels and copies) per call, the busiest
     kernels, the time per call and share of the busy time of each kernel
-    label in ``watch``, and the device's idle share of an untraced warm
-    call of ``host_ms_each``. Returns nulls when the trace holds no device
-    events."""
+    label in ``watch``, the device's idle share of an untraced warm call of
+    ``host_ms_each``, and the PyTorch operators per call that took a
+    tensor of 64 columns and at least 2^16 rows (the MLP's hidden width:
+    what the MLP kernels replaced shows there). Returns nulls when the
+    trace holds no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans, by_name, n_kernels = [], {}, 0
+    spans, by_name, n_kernels, wide = [], {}, 0, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.name.startswith("aten::") and any(
+                    len(sh) >= 2 and sh[-1] == 64
+                    and math.prod(sh[:-1]) >= 1 << 16
+                    for sh in (e.input_shapes or ())):
+                wide[e.name] = wide.get(e.name, 0) + 1 / reps
             continue
         n_kernels += 1
         s, t = e.time_range.start, e.time_range.end
@@ -461,6 +568,7 @@ def profile_device(fn, reps: int, host_ms_each: float,
     return {f"{unit}s": reps, f"device_ms_per_{unit}": device_ms,
             "idle_share": 1.0 - device_ms / host_ms_each,
             f"device_ops_per_{unit}": n_kernels / reps,
+            f"ops_on_64_columns_per_{unit}": wide,
             "device_ms_by_kernel": {k: v / 1e3 / reps for k, v in top},
             **({"watched_ms": watched,
                 "watched_share": {k: v / device_ms
@@ -841,15 +949,24 @@ def warm_steps(runner) -> dict:
                 steps.step(next(it) % n_iters)
             step_ms = host_ms(step, 10)
             before = cuda.counts()
-            with EncodeRecorder() as rec:
+            with EncodeRecorder() as rec, MlpRecorder() as mlp_rec:
                 for _ in range(5):
                     step()
             after = cuda.counts()
             encodes = rec.per_label(5)
+            mlp = mlp_rec.per_direction(5)
             parts = {labels[0]: labels for labels in ENCODE_WRAPPERS.values()}
-            profile = profile_device(step, 5, step_ms, unit="step",
-                                     watch=sum(parts.values(), ()))
+            profile = profile_device(
+                step, 5, step_ms, unit="step",
+                watch=sum(parts.values(), ()) + sum(MLP_LABELS.values(), ()))
             watched = profile.get("watched_ms")
+            for direction, r in mlp.items():
+                r["ms_per_step"] = (sum(watched[k]
+                                        for k in MLP_LABELS[direction])
+                                    if watched else None)
+                log(f"{phase} step, ngp_mlp {direction}: {r['ms_per_step']} "
+                    f"ms a step over {r['launches_per_step']} launches, "
+                    f"in-step bound {r['bound_ms_per_step']:.6f} ms")
             for label, r in encodes.items():
                 # the hash backward's time holds its fill and its
                 # transpose pass
@@ -863,15 +980,16 @@ def warm_steps(runner) -> dict:
                 "launches_per_step": {k: (after[k] - before[k]) / 5
                                       for k in after
                                       if after[k] != before[k]},
-                "profile": profile, "encodes": encodes}
+                "profile": profile, "encodes": encodes, "mlp": mlp}
     return out
 
 
-def _train_inputs(runner, samples: int | None, seed: int):
-    """A batch of 8192 pool rays marched (stratified) at the geometry
-    phase's config, or at ``samples`` samples of stride 1 (the pinned
-    shape): (cfg, coarse, o, d, jitter, march outputs, t_mid, valid, nx,
-    ny, nz, strides)."""
+def _train_inputs(runner, samples: int | None, seed: int,
+                  phase: str = "geo"):
+    """A batch of 8192 pool rays marched (stratified) at the ``phase``'s
+    config (the geometry phase's by default), or at ``samples`` samples of
+    stride 1 (the pinned shape): (cfg, coarse, o, d, jitter, march outputs,
+    t_mid, valid, nx, ny, nz, strides)."""
     import torch
     from perf_tpu_torch.fields import normalize_coords
     from perf_tpu_torch.kernels.hashgrid import level_strides
@@ -885,7 +1003,7 @@ def _train_inputs(runner, samples: int | None, seed: int):
     o, d, _, _ = scene._sample_batch(
         arrs, torch.rand(b, generator=g, device=scene.device))
     jitter = torch.rand((b, 1), generator=g, device=scene.device)
-    cfg = scene.phase_render_cfg("geo")[0]
+    cfg = scene.phase_render_cfg(phase)[0]
     if samples:
         cfg = dataclasses.replace(cfg, max_samples=samples, sample_stride=1)
     coarse = coarse_occ_grid(scene.occ_grid, cfg.occ_res)
@@ -1017,6 +1135,159 @@ def _hash_bwd_row(grid, nx, ny, nz, strides, gen) -> dict:
         "glue_ms": cuda_ms(lambda: lerp_levels_transpose(
             g, plan, n, s, total), 20),
         **encode_bound(grid, n, s, strides, backward=True)}
+
+
+def _mlp_rows(head, ws, x, sel, gen) -> tuple:
+    """``ngp_mlp`` and ``ngp_mlp_bwd`` rows of one head at inputs x [M, din]
+    inside sel: the forward against ``ngp_head_plain`` (at most
+    MLP_LOOSE_SHARE of the outputs off by > 1e-4 relative: bf16 ties), the
+    backward on the kernel's raw outputs and cotangents from ``gen``
+    against ``ngp_head_bwd_plain`` (the bf16 heads' dx, dW0, dW1
+    bf16-valued within one bf16 ulp, their last layer within 1e-5 relative
+    norm; the float32 proposal head's gradients all within 1e-5) and
+    against a second launch (bitwise); each timed beside its plain version
+    and the PyTorch route (the plain forward under autograd, its backward
+    by autograd)."""
+    import torch
+    from perf_tpu_torch.fields.mlp import ngp_head_bwd_plain, ngp_head_plain
+    from perf_tpu_torch.kernels.ngp_mlp import (ngp_mlp_bwd_cuda,
+                                                ngp_mlp_fwd_cuda)
+    m, din = x.shape
+    out, raw = ngp_mlp_fwd_cuda(ws, x, sel, head, save_raw=True)
+    ref, _ = ngp_head_plain(ws, x, sel, head)
+    loose = ((out - ref).abs() > 1e-4 * ref.abs()).float().mean().item()
+    check(bool(torch.isfinite(out).all()) and loose <= MLP_LOOSE_SHARE,
+          f"ngp_mlp ({head.name}, {m}): {loose} of the outputs off")
+    g = torch.randn((head.channels, m), generator=gen, device=x.device)
+    got = ngp_mlp_bwd_cuda(ws, x, sel, raw, g, head)
+    again = ngp_mlp_bwd_cuda(ws, x, sel, raw, g, head)
+    want = ngp_head_bwd_plain(ws, x, sel, raw, g, head)
+    got, again, want = ([t[0], *t[1]] for t in (got, again, want))
+    rerun = all(torch.equal(a, b) for a, b in zip(got, again))
+    n_bf16 = len(got) - 1 if head.bf16 else 0
+    ulps = 0.0
+    for a, b in zip(got[:n_bf16], want[:n_bf16]):
+        check(torch.equal(a, a.to(torch.bfloat16).float()),
+              f"ngp_mlp_bwd ({head.name}): a gradient not bf16-valued")
+        big = torch.maximum(a.abs(), b.abs()).double()
+        ulp = torch.where(big > 0, torch.exp2(torch.floor(torch.log2(
+            big.clamp_min(1e-300))) - 7), torch.ones_like(big))
+        ulps = max(ulps, ((a - b).abs() / ulp).max().item())
+    rel = max(((a - b).norm() / b.norm()).item() if b.norm() > 0 else
+              a.abs().max().item() for a, b in zip(got[n_bf16:],
+                                                   want[n_bf16:]))
+    check(rerun and ulps <= 1.0 and rel <= 1e-5,
+          f"ngp_mlp_bwd ({head.name}, {m}): rerun {rerun}, {ulps} bf16 "
+          f"ulps, rel {rel}")
+    # both float32 sums of the last layer's gradient against the same terms
+    # summed in float64
+    ref64 = _last_layer_f64(head, ws, x, sel, raw, g)
+    f64 = {k: ((v.double() - ref64).norm() / ref64.norm()).item()
+           for k, v in (("kernel", got[-1]), ("plain", want[-1]))}
+    lx = x.clone().requires_grad_(True)
+    lws = [w.detach().clone().requires_grad_(True) for w in ws]
+    route = [ngp_head_plain(lws, lx, sel, head)[0]]
+
+    def route_fwd():
+        route[0] = ngp_head_plain(lws, lx, sel, head)[0]
+    common = {"head": head.name, "shape": [m, din]}
+    fwd = {**common, "max_abs_err": (out - ref).abs().max().item(),
+           "loose_share": loose,
+           "ms": cuda_ms(lambda: ngp_mlp_fwd_cuda(ws, x, sel, head,
+                                                  save_raw=True), 20),
+           "plain_ms": cuda_ms(lambda: ngp_head_plain(ws, x, sel, head), 5),
+           "pytorch_route_ms": cuda_ms(route_fwd, 5),
+           **mlp_bound(head, m, din)}
+    bwd = {**common, "max_abs_err": max((a - b).abs().max().item()
+                                        for a, b in zip(got, want)),
+           "max_ulps": ulps, "rel_norm_err": rel, "rerun_equal": rerun,
+           "last_layer_rel_f64": f64,
+           "ms": cuda_ms(lambda: ngp_mlp_bwd_cuda(ws, x, sel, raw, g,
+                                                  head), 20),
+           "plain_ms": cuda_ms(lambda: ngp_head_bwd_plain(ws, x, sel, raw,
+                                                          g, head), 5),
+           "pytorch_route_ms": cuda_ms(lambda: torch.autograd.grad(
+               route[0], [lx, *lws], g, retain_graph=True), 5),
+           **mlp_bound(head, m, din, backward=True)}
+    return fwd, bwd
+
+
+def _last_layer_f64(head, ws, x, sel, raw, g):
+    """The last layer's weight gradient from the plain version's float32
+    terms (the last hidden layer's outputs, the raw outputs' cotangents),
+    summed in float64."""
+    import torch
+    from perf_tpu_torch.fields.mlp import head_epilogue_grad
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float() if head.bf16 else t
+    h = rnd(x)
+    for w in ws[:-1]:
+        h = rnd(torch.relu(h @ rnd(w)))
+    d = head_epilogue_grad(raw, sel, g, head).T
+    return h.double().T @ d.double()
+
+
+def _mlp_step_inputs(runner, head, seed: int) -> tuple:
+    """A step's MLP inputs on a trained field: the head's encoded features
+    [M, 32] and select [M] at 8192 pool rays marched at the head's phase
+    config, all samples for the density head, the first train_rgb_windows x
+    samples_per_window samples a ray for the colour head (the shape of the
+    step's window gather)."""
+    import torch
+    from perf_tpu_torch.fields import normalize_coords
+    from perf_tpu_torch.render.renderer import _strides
+    scene = runner.scene
+    fc = scene.field_cfg
+    cfg, _, o, d, _, _, t_mid, _, *_, strides = _train_inputs(
+        runner, None, seed, head.name)
+    if head.name == "app":
+        kw, c = cfg.train_rgb_windows, cfg.samples_per_window
+        if kw and kw * c < t_mid.shape[1]:
+            t_mid = t_mid[:, :kw * c]
+            strides = _strides(fc, cfg, kw * c)
+    nx, ny, nz, sel = normalize_coords(fc, *(o[:, a:a + 1] + d[:, a:a + 1]
+                                             * t_mid for a in range(3)))
+    with torch.no_grad():
+        feats = fc.grid.encode_ray(scene.params[head.name]["table"],
+                                   nx.contiguous(), ny.contiguous(),
+                                   nz.contiguous(), strides)
+    return feats.reshape(-1, feats.shape[-1]), sel.reshape(-1).contiguous()
+
+
+def compare_mlp_kernels(runner, hash_runner, prop_runner, seed: int) -> dict:
+    """The MLP kernels (both heads, forward and backward) against their
+    plain versions at the brick and hash steps' shapes on their trained
+    fields, the colour head at the step's window gather, and the proposal
+    head at level 0's points of a prop step's cascade (8192 x 128)."""
+    import torch
+    from perf_tpu_torch.fields.mlp import APP_HEAD, GEO_HEAD, PROP_HEAD
+    from perf_tpu_torch.kernels.hashgrid import hash_encode
+    from perf_tpu_torch.train.prop_scene import PROP_FIELD_CFGS
+    gen = torch.Generator(device=runner.scene.device).manual_seed(seed + 6)
+    res = {"ngp_mlp": {}, "ngp_mlp_bwd": {}}
+
+    def measure(tag, head, ws, x, sel):
+        res["ngp_mlp"][tag], res["ngp_mlp_bwd"][tag] = _mlp_rows(
+            head, ws, x, sel, gen)
+
+    for tag, r, head in (("scene", runner, GEO_HEAD),
+                         ("geo_hash", hash_runner, GEO_HEAD),
+                         ("app_windows", runner, APP_HEAD),
+                         ("app_hash", hash_runner, APP_HEAD)):
+        measure(tag, head, r.scene.params[head.name]["mlp"]["w"],
+                *_mlp_step_inputs(r, head, seed))
+    levels, _ = _prop_inputs(prop_runner, seed)
+    pc, pp = PROP_FIELD_CFGS[0], prop_runner.scene.prop_params[0]
+    x01 = ((levels[0]["pts"].reshape(-1, 3) - pc.aabb_min)
+           / (pc.aabb_max - pc.aabb_min)).contiguous()
+    with torch.no_grad():
+        feats = hash_encode(pp["table"], x01, pc.grid)
+    measure("prop_points", PROP_HEAD, pp["mlp"]["w"], feats,
+            ((x01 > 0.0) & (x01 < 1.0)).all(dim=-1))
+    return {name: {**r["scene"], **{t: v for t, v in r.items()
+                                    if t != "scene"}}
+            for name, r in res.items()}
 
 
 def compare_train_kernels(runner, seed: int) -> dict:
@@ -2480,9 +2751,17 @@ def run(seed: int):
           f"a brick-field kernel launched on the hash path: {launches_hash}")
     hashp["launches"] = {k: v for k, v in launches_hash.items() if v}
     hashp.update(warm_steps(hash_runner))
-    # three more bakes of the served hash scene (the first is in ready_s)
+    # three more bakes of the served hash scene (the first is in ready_s),
+    # each through the MLP kernel's forward
     table_served = hash_scene.snapshot
+    before = cuda.counts()
     rebake_s = [host_ms(hash_scene.bake_snapshot, 1) / 1e3 for _ in range(3)]
+    after = cuda.counts()
+    bake_mlp = {k: (after[k] - before[k]) / 3 for k in MLP_KERNELS}
+    log(f"hash bake: MLP launches a bake {bake_mlp}")
+    check(bake_mlp["ngp_mlp"] > 0 and bake_mlp["ngp_mlp_bwd"] == 0,
+          f"the hash bake did not go through the MLP kernel: {bake_mlp}")
+    hashp["bake_mlp_launches"] = bake_mlp
     check(torch.equal(hash_scene.snapshot, table_served),
           "hash bake not repeatable")
     del table_served
@@ -2541,18 +2820,20 @@ def run(seed: int):
                 f"priors.joint.iters_per_phase 1500 -> {JOINT_ITERS}",
                 f"dense frames 180 -> {PROP_DENSE}"):
         log(f"prop path cut: {cut}")
+    prop_train = prop_common + [
+        f"priors.joint.iters_per_phase={JOINT_ITERS}",
+        f"scene.train_conf.raw_phase_iter_geo={TRAIN_STEPS[0]}",
+        f"scene.train_conf.raw_phase_iter_app={TRAIN_STEPS[1]}",
+        "pose_sampler.traverse_ratios=[0.4]",
+        f"pose_sampler.n_anchors_per_ratio=[{PROP_ANCHORS}]",
+        f"render_dense.n_poses={PROP_DENSE}",
+        f"render_dense.height={FRAME_H}", f"render_dense.width={FRAME_W}"]
+    prop_serve = prop_common + ["mode=serve", "is_continue=true",
+                                "serve.port=0", f"serve.height={FRAME_H}",
+                                f"serve.width={FRAME_W}"]
     cuda.reset_counts()
-    prop_runner, prop_scene, prop = prop_phase(
-        prop_common + [
-            f"priors.joint.iters_per_phase={JOINT_ITERS}",
-            f"scene.train_conf.raw_phase_iter_geo={TRAIN_STEPS[0]}",
-            f"scene.train_conf.raw_phase_iter_app={TRAIN_STEPS[1]}",
-            "pose_sampler.traverse_ratios=[0.4]",
-            f"pose_sampler.n_anchors_per_ratio=[{PROP_ANCHORS}]",
-            f"render_dense.n_poses={PROP_DENSE}",
-            f"render_dense.height={FRAME_H}", f"render_dense.width={FRAME_W}"],
-        prop_common + ["mode=serve", "is_continue=true", "serve.port=0",
-                       f"serve.height={FRAME_H}", f"serve.width={FRAME_W}"])
+    with MlpRecorder() as prop_mlp:
+        prop_runner, prop_scene, prop = prop_phase(prop_train, prop_serve)
     launches_prop = cuda.counts()
     log(f"launches on the prop path: {launches_prop}")
     check(all(launches_prop[k] > 0 for k in PROP_PATH),
@@ -2561,6 +2842,12 @@ def run(seed: int):
           f"an occupancy-path kernel launched on the prop path: "
           f"{launches_prop}")
     prop["launches"] = {k: v for k, v in launches_prop.items() if v}
+    prop["mlp_launches_by_head"] = prop_mlp.launches()
+    log(f"prop: MLP launches by head {prop['mlp_launches_by_head']}")
+    check(all(prop["mlp_launches_by_head"].get(f"{d}/{h}", 0) > 0
+              for d in ("fwd", "bwd") for h in ("geo", "app", "prop")),
+          f"a head's MLP kernel never launched on the prop path: "
+          f"{prop['mlp_launches_by_head']}")
     prop.update(warm_steps(prop_runner))
     log(f"prop: {json.dumps(prop)}")
     del prop_scene
@@ -2583,6 +2870,8 @@ def run(seed: int):
     results.update(compare_sphere_kernels(sphere_runner.geo_predictor.cfg.field,
                                           seed))
     results.update(compare_prop_kernels(prop_runner, seed))
+    results.update(compare_mlp_kernels(runner, hash_runner, prop_runner,
+                                       seed))
     for name in ("brick_encode", "brick_encode_bwd"):
         results[name]["prop_final"] = results.pop(f"{name}_prop_final")
     for name in ("hash_encode", "hash_encode_bwd"):
@@ -2609,6 +2898,14 @@ def run(seed: int):
                 f"{WAS_MS[name]} at the table's row{glue}), bound "
                 f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
                 f"{r.get('library_ms')}")
+    # the MLP kernels beside the PyTorch route they replace
+    for name in MLP_KERNELS:
+        for tag in (None, "geo_hash", "app_windows", "app_hash",
+                    "prop_points"):
+            r = results[name] if tag is None else results[name][tag]
+            log(f"{name}[{tag or 'scene'}] {r['head']} {r['shape']}: "
+                f"{r['ms']:.5f} ms (PyTorch route {r['pytorch_route_ms']:.5f}"
+                f"), bound {r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}")
     kernels = []
     for name in REPLACES:
         r = results[name]
@@ -2639,7 +2936,9 @@ def run(seed: int):
             "source": CSRC + cuda.KERNELS[name].source,
             "replaces": REPLACES[name], "path": path, "launches": counted,
             "max_abs_err": top["max_abs_err"],
-            **{k: top[k] for k in ("max_rel_err", "loose_share",
+            **{k: top[k] for k in ("head", "max_ulps", "rerun_equal",
+                                   "pytorch_route_ms", "last_layer_rel_f64",
+                                   "max_rel_err", "loose_share",
                                    "rel_norm_err", "rerun_rel_norm",
                                    "points", "strides",
                                    "glue_ms",
@@ -2657,7 +2956,8 @@ def run(seed: int):
             "library_ms": top.get("library_ms"),
             **{k: r[k] for k in ("pinned", "readback", "bake", "level1",
                                  "final", "prop_final", "prop_points",
-                                 "vis_core", "views")
+                                 "vis_core", "views", "geo_hash",
+                                 "app_windows", "app_hash")
                if k in r}})
     return {"gather": gather, "train": train, "serve": serve,
             "anchor": anchor, "hash": hashp, "sphere": sphere, "prop": prop,

@@ -7,10 +7,18 @@ float32 tensors laid out ``[din, dout]`` (``{"w": [...]}`` for the NGP
 MLP, ``{"w": [...], "b": [...]}`` for the VanillaMLP, ``{"v": [...], "g":
 [...], "b": [...]}`` for the weight-normed VanillaMLP of the geometry
 refiner), so a ``perf_tpu`` param tree loads as it is.
+
+The NGP heads (``NGPHead``: an MLP with its output activation and AABB
+select, as ``perf_tpu/fields/ngp.py`` applies them) have a plain forward
+(``ngp_head_plain``) and a plain backward written out by hand
+(``ngp_head_bwd_plain``): the math of the CUDA kernels in
+``kernels/ngp_mlp.py``, with the cotangents rounded to bf16 where both
+packages' autodiff rounds them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -61,6 +69,114 @@ def ngp_mlp_apply_channels(params: dict, x: torch.Tensor,
             o = out_activation(o)
         outs.append(o)
     return tuple(outs)
+
+
+class TruncExp(torch.autograd.Function):
+    """exp with the forward input clamped to <= 80 and the gradient taken
+    at the input clamped to <= 15 (torch-ngp's trick)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(torch.clamp(x, max=80.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, max=15.0))
+
+
+trunc_exp = TruncExp.apply
+
+
+@dataclasses.dataclass(frozen=True)
+class NGPHead:
+    """One NGP MLP with its epilogue. ``hidden`` ReLU layers of 64 neurons
+    and ``channels`` outputs; ``bf16``: JAX's rounding points
+    (``ngp_mlp_apply_channels``), else float32 throughout
+    (``ngp_mlp_apply``). ``epilogue``: "trunc_exp" is where(sel,
+    trunc_exp(raw), 0), "sigmoid" is sigmoid(raw) * sel, "trunc_exp_m1" is
+    where(sel, trunc_exp(raw - 1), 0)."""
+    name: str
+    hidden: int
+    channels: int
+    bf16: bool
+    epilogue: str
+
+
+# the density head, the colour head (perf_tpu/fields/ngp.py:134-200) and the
+# proposal fields' density (:252-261)
+GEO_HEAD = NGPHead("geo", 1, 1, True, "trunc_exp")
+APP_HEAD = NGPHead("app", 2, 3, True, "sigmoid")
+PROP_HEAD = NGPHead("prop", 1, 1, False, "trunc_exp_m1")
+
+
+def head_epilogue(raw: torch.Tensor, sel: torch.Tensor,
+                  head: NGPHead) -> torch.Tensor:
+    """The activated channels [C, M] of raw [C, M] and sel [M] (bool)."""
+    if head.epilogue == "sigmoid":
+        return torch.sigmoid(raw) * sel.float()
+    z = raw - 1.0 if head.epilogue == "trunc_exp_m1" else raw
+    return torch.where(sel, trunc_exp(z), torch.zeros_like(z))
+
+
+def head_epilogue_grad(raw: torch.Tensor, sel: torch.Tensor, g: torch.Tensor,
+                       head: NGPHead) -> torch.Tensor:
+    """d raw [C, M] from the activated channels' cotangent g [C, M]: the
+    where's transpose, then ``trunc_exp``'s derivative taken at the input
+    clamped to 15, or the sigmoid's y (1 - y) in JAX's order."""
+    if head.epilogue == "sigmoid":
+        y = torch.sigmoid(raw)
+        return (g * sel.float()) * (y * (1.0 - y))
+    z = raw - 1.0 if head.epilogue == "trunc_exp_m1" else raw
+    return (torch.where(sel, g, torch.zeros_like(g))
+            * torch.exp(torch.clamp(z, max=15.0)))
+
+
+def ngp_head_plain(ws: list, x: torch.Tensor, sel: torch.Tensor,
+                   head: NGPHead) -> tuple:
+    """The head at inputs x [M, din] inside sel [M]: (the activated channels
+    [C, M], the MLP's raw output [C, M])."""
+    if head.bf16:
+        raw = torch.stack(ngp_mlp_apply_channels({"w": ws}, x))
+    else:
+        raw = ngp_mlp_apply({"w": ws}, x).T.contiguous()
+    return head_epilogue(raw, sel, head), raw
+
+
+def ngp_head_bwd_plain(ws: list, x: torch.Tensor, sel: torch.Tensor,
+                       raw: torch.Tensor, g: torch.Tensor, head: NGPHead,
+                       need_dx: bool = True) -> tuple:
+    """The head's backward written out: (dx [M, din] or None, the weights'
+    gradients) from the activated channels' cotangent g [C, M]. The hidden
+    layers are recomputed from x, rounded where the forward rounds; every
+    cotangent that reaches a bf16 value is rounded to bf16 (both packages'
+    autodiff transposes the cast), so dx and the bf16 layers' weight
+    gradients are bf16-valued, each rounded once after its float32 sum;
+    the last layer's gradient is float32."""
+    rnd = _bf16 if head.bf16 else (lambda t: t)
+    h = rnd(x)
+    acts, pres = [h], []
+    for w in ws[:-1]:
+        pre = h @ rnd(w)
+        pres.append(pre)
+        h = rnd(torch.relu(pre))
+        acts.append(h)
+    d = head_epilogue_grad(raw, sel, g, head).T            # [M, C]
+    w_last = ws[-1]
+    grads = [None] * len(ws)
+    grads[-1] = acts[-1].T @ d
+    # the channels' cotangents of the last hidden layer, summed in channel
+    # order
+    d_h = d[:, :1] * w_last[:, 0]
+    for c in range(1, w_last.shape[1]):
+        d_h = d_h + d[:, c:c + 1] * w_last[:, c]
+    for i in reversed(range(len(ws) - 1)):
+        d_pre = torch.where(pres[i] > 0, rnd(d_h), torch.zeros_like(d_h))
+        grads[i] = rnd(acts[i].T @ d_pre)
+        if i or need_dx:
+            d_h = d_pre @ rnd(ws[i]).T
+    return (rnd(d_h) if need_dx else None), grads
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -10,13 +10,19 @@ reference-parity layout); each owns its table's init and its encodes
 (``init_table``, ``encode_coords``, ``encode_coords_plain``,
 ``encode_ray``).
 
+Every head query (``query_density_ray`` / ``query_rgb_ray`` on the training
+path, ``query_density_coords`` / ``query_rgb_coords`` at points,
+``query_density_field``) takes the grid's encode kernels and then the NGP
+MLP kernels with their epilogue (``kernels/ngp_mlp.py``, K2 forward and
+backward) on CUDA tensors, and the plain versions on CPU tensors: the
+composition of ``ngp_mlp_apply_channels`` / ``ngp_mlp_apply`` with
+``TruncExp``, the sigmoid and the select under autograd; ``plain=True``
+sends the encode and the MLP to their plain versions on any device.
+
 Serving evaluates both heads at points through ``field_eval``: for a brick
 grid the fused CUDA kernel (``kernels/csrc/field_eval.cu``), for a hash
-grid the ``hash_encode`` kernel of each head followed by the heads' plain
-MLPs (the dot products JAX leaves to XLA); ``field_eval_plain`` for CPU
-tensors. The training path queries ray-structured samples through
-``query_density_ray`` / ``query_rgb_ray``: the grid's encode kernels with
-level strides, then the MLP under autograd.
+grid the ``hash_encode`` kernel of each head followed by its MLP kernel;
+``field_eval_plain`` for CPU tensors.
 
 The proposal estimator's density fields (``NGPDensityFieldConfig``,
 ``init_density_field``, ``query_density_field``;
@@ -32,28 +38,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import cuda
+from ..kernels import cuda, ngp_mlp
 from ..kernels.brickgrid import BrickGridConfig, level_table
 from ..kernels.hashgrid import HashGridConfig, hash_encode, init_hash_table
-from .mlp import ngp_mlp_apply, ngp_mlp_apply_channels, ngp_mlp_init
-
-
-class TruncExp(torch.autograd.Function):
-    """exp with the forward input clamped to <= 80 and the gradient taken
-    at the input clamped to <= 15 (torch-ngp's trick)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return torch.exp(torch.clamp(x, max=80.0))
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return g * torch.exp(torch.clamp(x, max=15.0))
-
-
-trunc_exp = TruncExp.apply
+from .mlp import (APP_HEAD, GEO_HEAD, PROP_HEAD, ngp_mlp_apply,
+                  ngp_mlp_apply_channels, ngp_mlp_init, trunc_exp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,14 +97,49 @@ def _encode_coords(cfg: NGPFieldConfig, plain: bool):
     return cfg.grid.encode_coords_plain if plain else cfg.grid.encode_coords
 
 
+def _mlp_kernel(feats: torch.Tensor, plain: bool) -> bool:
+    """Whether the head's MLP takes its kernel: CUDA features unless
+    ``plain``; CPU features take the plain version, others raise."""
+    if feats.is_cuda:
+        return not plain
+    if feats.device.type != "cpu":
+        raise ValueError(f"NGP field: unsupported device {feats.device}")
+    return False
+
+
+def _head_kernel(params: dict, feats: torch.Tensor, sel: torch.Tensor,
+                 head) -> tuple:
+    """The head's activated channels through the K2 kernels, each shaped
+    as ``sel``."""
+    out = ngp_mlp.ngp_head(params["mlp"]["w"],
+                           feats.reshape(-1, feats.shape[-1]),
+                           sel.reshape(-1), head)
+    return tuple(o.view(sel.shape) for o in out)
+
+
+def _density(geo_params: dict, feats, sel, plain: bool = False):
+    if _mlp_kernel(feats, plain):
+        return _head_kernel(geo_params, feats, sel, GEO_HEAD)[0]
+    (raw,) = ngp_mlp_apply_channels(geo_params["mlp"], feats)
+    return torch.where(sel, trunc_exp(raw), torch.zeros_like(raw))
+
+
+def _rgb(app_params: dict, feats, sel, plain: bool = False):
+    if _mlp_kernel(feats, plain):
+        return _head_kernel(app_params, feats, sel, APP_HEAD)
+    r, g, b = ngp_mlp_apply_channels(app_params["mlp"], feats,
+                                     out_activation=torch.sigmoid)
+    s = sel.float()
+    return r * s, g * s, b * s
+
+
 def query_density_coords(geo_params: dict, x, y, z, cfg: NGPFieldConfig,
                          plain: bool = False) -> torch.Tensor:
     """Density at world coords given as three same-shape tensors
-    (``plain``: through the grid's plain encode only)."""
+    (``plain``: through the grid's plain encode and the plain MLP)."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
     feats = _encode_coords(cfg, plain)(geo_params["table"], nx, ny, nz)
-    (raw,) = ngp_mlp_apply_channels(geo_params["mlp"], feats)
-    return torch.where(sel, trunc_exp(raw), torch.zeros_like(raw))
+    return _density(geo_params, feats, sel, plain)
 
 
 def query_rgb_coords(app_params: dict, x, y, z, cfg: NGPFieldConfig,
@@ -123,10 +147,7 @@ def query_rgb_coords(app_params: dict, x, y, z, cfg: NGPFieldConfig,
     """RGB at world coords -> tuple (r, g, b)."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
     feats = _encode_coords(cfg, plain)(app_params["table"], nx, ny, nz)
-    r, g, b = ngp_mlp_apply_channels(app_params["mlp"], feats,
-                                     out_activation=torch.sigmoid)
-    s = sel.float()
-    return r * s, g * s, b * s
+    return _rgb(app_params, feats, sel, plain)
 
 
 def query_density_ray(geo_params: dict, x, y, z, cfg: NGPFieldConfig,
@@ -135,8 +156,7 @@ def query_density_ray(geo_params: dict, x, y, z, cfg: NGPFieldConfig,
     differentiable in the head's table and MLP."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
     feats = cfg.grid.encode_ray(geo_params["table"], nx, ny, nz, strides)
-    (raw,) = ngp_mlp_apply_channels(geo_params["mlp"], feats)
-    return torch.where(sel, trunc_exp(raw), torch.zeros_like(raw))
+    return _density(geo_params, feats, sel)
 
 
 def query_rgb_ray(app_params: dict, x, y, z, cfg: NGPFieldConfig,
@@ -144,10 +164,7 @@ def query_rgb_ray(app_params: dict, x, y, z, cfg: NGPFieldConfig,
     """RGB at ray-structured world coords [N, S] -> (r, g, b)."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
     feats = cfg.grid.encode_ray(app_params["table"], nx, ny, nz, strides)
-    r, g, b = ngp_mlp_apply_channels(app_params["mlp"], feats,
-                                     out_activation=torch.sigmoid)
-    s = sel.float()
-    return r * s, g * s, b * s
+    return _rgb(app_params, feats, sel)
 
 
 def _eval_heads(params: dict, xyz: torch.Tensor, cfg: NGPFieldConfig,
@@ -216,7 +233,8 @@ def field_eval(params: dict, xyz: torch.Tensor,
                cfg: NGPFieldConfig) -> torch.Tensor:
     """(sigma, r, g, b) [N, 4] at world points [N, 3]. CUDA tensors: the
     fused ``field_eval`` kernel (brick grid), or each head's ``hash_encode``
-    kernel and its MLP (hash grid); CPU tensors: the plain version."""
+    kernel and its MLP kernel (hash grid); CPU tensors: the plain
+    version."""
     if xyz.is_cuda:
         if cfg.grid.fused_field:
             return field_eval_cuda(params, xyz, cfg)
@@ -266,7 +284,10 @@ def query_density_field(params: dict, x: torch.Tensor,
     x01 = (x.reshape(-1, 3) - cfg.aabb_min) / (cfg.aabb_max - cfg.aabb_min)
     sel = ((x01 > 0.0) & (x01 < 1.0)).all(dim=-1)
     feats = hash_encode(params["table"], x01.detach(), cfg.grid)
-    raw = ngp_mlp_apply(params["mlp"], feats)
-    density = torch.where(sel[:, None], trunc_exp(raw - 1.0),
-                          torch.zeros_like(raw))
+    if _mlp_kernel(feats, False):
+        density = _head_kernel(params, feats, sel, PROP_HEAD)[0]
+    else:
+        raw = ngp_mlp_apply(params["mlp"], feats)
+        density = torch.where(sel[:, None], trunc_exp(raw - 1.0),
+                              torch.zeros_like(raw))
     return density.reshape(*shape, 1)

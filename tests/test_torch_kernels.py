@@ -69,6 +69,10 @@ from perf_tpu_torch.utils import (cube_room_occ_grid, random_field_params,
                                   render_cube_room_pano)
 from perf_tpu_torch.data import Dataset
 from perf_tpu_torch.fields import SphereFieldConfig
+from perf_tpu_torch.fields.mlp import (APP_HEAD, GEO_HEAD, PROP_HEAD, NGPHead,
+                                       ngp_head_bwd_plain, ngp_head_plain)
+from perf_tpu_torch.kernels.ngp_mlp import (ngp_head, ngp_mlp_bwd_cuda,
+                                            ngp_mlp_fwd_cuda)
 from perf_tpu_torch.priors import (FakeCubeRoomDepthPredictor,
                                    FakeCubeRoomNormalPredictor,
                                    PanoFusionConfig, PanoFusionInvPredictor,
@@ -172,6 +176,68 @@ def bilinear_case(c: int, padding: str, seed: int):
     coords = rng.uniform(-0.2, 1.2, (3, 4173, 2)).astype(np.float32)
     cot = rng.standard_normal((3, 4173, c)).astype(np.float32)
     return img, coords, cot
+
+
+# -- inputs of the NGP MLP kernels (the card tests below and
+# tests/test_torch_mlp.py) ------------------------------------------------------
+
+MLP_HEADS = (GEO_HEAD, APP_HEAD, PROP_HEAD)
+
+
+def mlp_case(head: NGPHead, seed: int, m: int = 301):
+    """(ws, x [m, din], sel [m], g [C, m]) as numpy float32 / bool: He-init
+    weights, inputs N(0, 0.5), sel 80% true, cotangents N(0, 1). With m >=
+    8: row 0 is zero (every ReLU at 0) and the three rows with the largest
+    first-channel raw output are scaled (the heads are bias-free ReLU
+    networks, so raw scales with the input) to reach about 20 and 100
+    inside the select and 100 outside it (the clamps at 15 and 80), the
+    row with the smallest to about -30."""
+    rng = np.random.default_rng(seed)
+    din = 10 if head is PROP_HEAD else 32
+    dims = [din] + [64] * head.hidden + [head.channels]
+    ws = [(rng.standard_normal((a, b)) * np.sqrt(2.0 / a)).astype(np.float32)
+          for a, b in zip(dims[:-1], dims[1:])]
+    x = rng.normal(0.0, 0.5, (m, din)).astype(np.float32)
+    sel = rng.uniform(size=m) < 0.8
+    g = rng.standard_normal((head.channels, m)).astype(np.float32)
+    if m < 8:
+        return ws, x, sel, g
+    x[0] = 0.0
+    raw = ngp_head_plain([torch.from_numpy(w) for w in ws],
+                         torch.from_numpy(x), torch.ones(m, dtype=torch.bool),
+                         head)[1][0].numpy()
+    if (raw > 0.0).sum() < 3:     # a head whose first channel seldom rises
+        ws[-1][:, 0] *= -1.0
+        raw = -raw
+    up = np.argsort(raw)[-3:]
+    down = np.argsort(raw)[:1] if raw.min() < 0.0 else []
+    for row, target in zip((*up, *down), (20.0, 100.0, 100.0, -30.0)):
+        x[row] *= target / raw[row]
+    sel[up[:2]] = True
+    sel[up[2]] = False
+    return ws, x, sel, g
+
+
+def bf16_ulp(v: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at |v| (8 significant bits); 0 at 0."""
+    a = np.abs(np.asarray(v, np.float64))
+    safe = np.where(a > 0, a, 1.0)
+    return np.where(a > 0, 2.0 ** (np.floor(np.log2(safe)) - 7), 0.0)
+
+
+def bf16_ulps_apart(got, ref) -> np.ndarray:
+    """|got - ref| in bf16 ulps of the larger magnitude (inf where one is 0
+    and the other is not)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    ulp = bf16_ulp(np.maximum(np.abs(got), np.abs(ref)))
+    d = np.abs(got - ref)
+    return np.where(ulp > 0, d / np.where(ulp > 0, ulp, 1.0),
+                    np.where(d > 0, np.inf, 0.0))
+
+
+def is_bf16_valued(t) -> bool:
+    t = torch.as_tensor(t)
+    return torch.equal(t, t.to(torch.bfloat16).float())
 
 
 FWD_CASES = ("tail", "point", "s48", "s80", "faces", "misaligned", "one")
@@ -339,6 +405,21 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
         onehot_gather_cuda(g_table, g_rows, 512)
 
 
+def test_ngp_mlp_wrappers_refuse_cpu_tensors_and_other_heads():
+    for head in MLP_HEADS:
+        ws, x, sel, g = (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                         else [torch.from_numpy(w) for w in a]
+                         for a in mlp_case(head, 0, 9))
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            ngp_mlp_fwd_cuda(ws, x, sel, head, save_raw=True)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            ngp_mlp_bwd_cuda(ws, x, sel, g, g, head)
+    deep = NGPHead("geo", 2, 1, True, "trunc_exp")
+    with pytest.raises(ValueError, match="no instance"):
+        ngp_mlp_fwd_cuda(ws, x, sel, deep, save_raw=False)
+    assert cuda.counts()["ngp_mlp"] == cuda.counts()["ngp_mlp_bwd"] == 0
+
+
 def test_non_wild_entry_points_never_fall_back_to_the_cpu(monkeypatch):
     """Without a visible GPU, a default-constructed refiner or fusion
     predictor raises rather than quietly running the plain versions on the
@@ -448,6 +529,11 @@ def test_plain_path_counts_no_launch():
     new = prop_k.sample_from_weights(e, w, prop_k.linspace_u(4, 4))
     prop_k.prop_loss(new, prop_k.weights_from_density(sig[:, :4], new),
                      [{"edges": e, "weights": w}]).backward()
+    for head in MLP_HEADS:
+        ws, xm, selm, _ = mlp_case(head, 0, 9)
+        ws = [torch.from_numpy(a).requires_grad_(True) for a in ws]
+        ngp_head(ws, torch.from_numpy(xm).requires_grad_(True),
+                 torch.from_numpy(selm), head).sum().backward()
     assert set(cuda.counts()) == {
         "field_eval", "bake_scatter_pack", "march_windows",
         "march_windows_stratified", "snapshot_composite", "brick_encode",
@@ -458,7 +544,8 @@ def test_plain_path_counts_no_launch():
         "hash_encode", "hash_encode_bwd", "take_gather", "onehot_gather",
         "hash_encode_smooth", "hash_encode_smooth_bwd", "hash_encode_grad",
         "hash_encode_grad_bwd", "prop_resample", "prop_weights",
-        "prop_weights_bwd", "prop_loss", "prop_loss_bwd"}
+        "prop_weights_bwd", "prop_loss", "prop_loss_bwd", "ngp_mlp",
+        "ngp_mlp_bwd"}
     assert all(v == 0 for v in cuda.counts().values())
 
 
@@ -471,6 +558,7 @@ def test_importing_the_anchor_slice_never_imports_jax():
             "perf_tpu_torch.tools.bench_pallas_encode, "
             "perf_tpu_torch.tools.bilinear_variants, "
             "perf_tpu_torch.tools.encode_probe, "
+            "perf_tpu_torch.tools.mlp_probe, perf_tpu_torch.kernels.ngp_mlp, "
             "perf_tpu_torch.priors.pano_refiner, "
             "perf_tpu_torch.priors.pano_fusion, perf_tpu_torch.data.dataset; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -1176,3 +1264,70 @@ def test_prop_loss_kernels_match_plain(gpu, n, m, k):
     assert cuda.counts()["prop_loss_bwd"] == before + 1
     dw_ref = prop_k.prop_loss_bwd_plain(te, wp, tf, wf, g)
     assert ((dw - dw_ref).norm() / dw_ref.norm()).item() <= 1e-5
+
+
+# -- the NGP MLP (K2, csrc/ngp_mlp.cu) --------------------------------------------
+
+# m: no multiple of the backward's 128-point tile; a single point; every
+# point outside the select; enough tiles that each block of the backward's
+# grid takes two or three
+MLP_SIZES = {"tail": 301, "one": 1, "sel_false": 257, "tiles": 87_077}
+
+
+def _mlp_on(dev, head: NGPHead, case: str):
+    ws, x, sel, g = mlp_case(head, 70 + list(MLP_SIZES).index(case),
+                             MLP_SIZES[case])
+    if case == "sel_false":
+        sel[:] = False
+    return ([torch.from_numpy(w).to(dev) for w in ws],
+            torch.from_numpy(x).to(dev), torch.from_numpy(sel).to(dev),
+            torch.from_numpy(g).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MLP_SIZES))
+@pytest.mark.parametrize("head", MLP_HEADS, ids=lambda h: h.name)
+def test_ngp_mlp_kernels_match_plain(gpu, head, case):
+    """Forward (under no_grad and through the Function) and backward
+    against the plain versions on the card: the forward's float32 sums run
+    in another order than cuBLAS's, so a hidden unit on a bf16 tie may round
+    apart (at most 0.1% of outputs off by > 1e-4 relative); the backward on
+    the kernel's own raw outputs: dx, dW0, dW1 bf16-valued within one bf16
+    ulp, the last layer within 1e-5 relative norm (the proposal head's
+    float32 gradients all within 1e-5); a second backward bitwise the
+    first."""
+    ws, x, sel, g = _mlp_on(gpu[0], head, case)
+    before = cuda.counts()
+    with torch.no_grad():
+        out_ng = ngp_head(ws, x, sel, head)
+    mid = cuda.counts()
+    assert mid["ngp_mlp"] == before["ngp_mlp"] + 1
+    assert mid["ngp_mlp_bwd"] == before["ngp_mlp_bwd"]
+    lx = x.clone().requires_grad_(True)
+    lws = [w.clone().requires_grad_(True) for w in ws]
+    out = ngp_head(lws, lx, sel, head)
+    assert torch.equal(out, out_ng)
+    ref, _ = ngp_head_plain(ws, x, sel, head)
+    rel = (out - ref).abs() / ref.abs().clamp_min(1e-30)
+    assert torch.isfinite(out).all()
+    assert (rel > 1e-4).float().mean().item() <= 1e-3
+    if case == "sel_false":
+        assert (out == 0).all()
+
+    grads = torch.autograd.grad(out, [lx, *lws], g)
+    after = cuda.counts()
+    assert after["ngp_mlp_bwd"] == mid["ngp_mlp_bwd"] + 1
+    again = torch.autograd.grad(ngp_head(lws, lx, sel, head), [lx, *lws], g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    _, raw = ngp_mlp_fwd_cuda(ws, x, sel, head, save_raw=True)
+    rdx, rws = ngp_head_bwd_plain(ws, x, sel, raw, g, head)
+    torch.cuda.synchronize()
+    got = [t.cpu().numpy() for t in grads]
+    want = [t.cpu().numpy() for t in (rdx, *rws)]
+    n_round = len(got) - 1 if head.bf16 else 0
+    for a, b in zip(got[:n_round], want[:n_round]):
+        assert is_bf16_valued(a)
+        assert (bf16_ulps_apart(a, b) <= 1.0).all()
+    for a, b in zip(got[n_round:], want[n_round:]):
+        nb = np.linalg.norm(b)
+        assert (np.linalg.norm(a - b) <= 1e-5 * nb) if nb > 0 else (a == 0).all()
