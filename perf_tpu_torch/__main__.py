@@ -112,15 +112,19 @@ def scene_configs(conf):
     else:
         field_cfg = NGPFieldConfig()
     sd = SnapshotConfig()
-    for key, off in (("dedup_ratio", 0.0), ("frame_dispatch", False),
-                     ("bake_host", False)):
+    for key, off in (("frame_dispatch", False), ("bake_host", False)):
         if conf.get_path(f"snapshot.{key}", off) != off:
             raise ValueError(f"snapshot.{key} is not ported (must be {off})")
+    # dedup_ratio acts on every snapshot render of an occupancy-grid scene
+    # (brick or hash field); a prop scene has no snapshot, so there it is
+    # read and has nothing to act on, as in JAX
     snap_cfg = SnapshotConfig(
         res=int(conf.get_path("snapshot.res", sd.res)),
         sample_stride=conf.get_path("snapshot.sample_stride",
                                     sd.sample_stride),
-        march_coarse=conf.get_path("snapshot.march_coarse", sd.march_coarse))
+        march_coarse=conf.get_path("snapshot.march_coarse", sd.march_coarse),
+        dedup_ratio=float(conf.get_path("snapshot.dedup_ratio",
+                                        sd.dedup_ratio)))
     return field_cfg, render_cfg, snap_cfg
 
 

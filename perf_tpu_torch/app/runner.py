@@ -58,9 +58,10 @@ from ..utils.metrics import MetricsWriter, phase_timer
 
 def train_config(tc) -> TrainConfig:
     """TrainConfig from ``scene.train_conf`` with the JAX runner's keys and
-    defaults; keys of unported paths that are switched on raise
-    (``dedup_runs``; ``scan_chunk`` other than 1, JAX's k steps per
-    dispatch)."""
+    defaults; ``scan_chunk`` other than 1 (JAX's k steps per dispatch, not
+    ported) raises. ``dedup_runs`` probes run caps for a brick field's
+    training steps; on a hash field it gives no caps and the proposal
+    estimator reads none, as in JAX (neither raises)."""
     parity_only = {"vis_video_freq": 25000, "ignore_near": True,
                    "cross_depth_check": True}
     for key, default in parity_only.items():
@@ -68,8 +69,6 @@ def train_config(tc) -> TrainConfig:
             warnings.warn(f"config key '{key}'={tc[key]!r} has no effect "
                           "(the reference declares it and never reads it)",
                           stacklevel=2)
-    if tc.get("dedup_runs", False):
-        raise ValueError("train_conf.dedup_runs is not ported")
     if tc.get("scan_chunk", 1) != 1:
         raise ValueError(f"train_conf.scan_chunk={tc['scan_chunk']!r}: only 1 "
                          "is ported (the port runs one step per dispatch)")
@@ -92,6 +91,7 @@ def train_config(tc) -> TrainConfig:
         bucket_train=tc.get("bucket_train", True),
         app_sample_stride=tc.get("app_sample_stride", 2),
         geo_sample_stride=tc.get("geo_sample_stride", 1),
+        dedup_runs=tc.get("dedup_runs", False),
         occ_field_prune=tc.get("occ_field_prune", False),
         vis_freq=tc.get("vis_freq", 0),
     )

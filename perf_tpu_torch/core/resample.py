@@ -68,7 +68,12 @@ _FWD = cuda.register(cuda.CudaKernel(
 _BWD = cuda.register(cuda.CudaKernel(
     "bilinear_sample_bwd", "bilinear.cu", "bilinear_bwd_launch",
     [cuda.P, cuda.I32, cuda.I32, cuda.I32, cuda.I32, cuda.P, cuda.I64,
-     cuda.I32, cuda.P]))
+     cuda.I32, cuda.I32, cuda.P, cuda.P, cuda.P, cuda.P]))
+# the backward's routes (csrc/bilinear.cu): one block an image sorting each
+# 256 samples' products by pixel, for at most this many samples an image
+# (the distillation's 256 a view); fixed-point sums for more
+BWD_ROUTES = ("fixed_point", "sorted")
+SORTED_MAX_SAMPLES = 1024
 
 
 def _check_sizes(b, h, w, c, m):
@@ -110,19 +115,37 @@ def bilinear_sample_cuda(img: torch.Tensor, coords: torch.Tensor,
 
 
 def bilinear_sample_grad_cuda(img_shape, coords: torch.Tensor, padding: str,
-                              grad: torch.Tensor) -> torch.Tensor:
-    """Kernel backward: the image gradient [B, H, W, C] (float32 atomics)
-    from the samples' cotangents [B, M, C]."""
+                              grad: torch.Tensor,
+                              route: str | None = None) -> torch.Tensor:
+    """Kernel backward: the image gradient [B, H, W, C] from the samples'
+    cotangents [B, M, C], each pixel's products summed in an order that
+    does not change (the same bits from launch to launch): ``sorted`` for
+    at most SORTED_MAX_SAMPLES samples an image, else ``fixed_point``
+    (``route`` forces one)."""
     b, h, w, c = img_shape
     m = coords.shape[1]
     cuda.check(coords, "coords", torch.float32, (b, m, 2))
     grad = grad.contiguous()
     cuda.check(grad, "grad", torch.float32, (b, m, c), coords.device)
     _check_sizes(b, h, w, c, m)
+    if route is None:
+        route = "sorted" if m <= SORTED_MAX_SAMPLES else "fixed_point"
     coords = _aligned(coords)
-    g_img = torch.zeros(img_shape, dtype=torch.float32, device=coords.device)
+    dev = coords.device
+    g_img = torch.empty(img_shape, dtype=torch.float32, device=dev)
+    if route == "fixed_point":
+        # its scratch: the fixed-point sums and the non-finite products'
+        # float sums (it clears the pixels the taps reach), the cotangents'
+        # largest magnitude
+        acc = torch.empty(img_shape, dtype=torch.int64, device=dev)
+        special = torch.empty(img_shape, dtype=torch.float32, device=dev)
+        gmax = torch.empty(1, dtype=torch.int32, device=dev)
+        scratch = (acc.data_ptr(), special.data_ptr(), gmax.data_ptr())
+    else:
+        scratch = (None, None, None)
     _BWD.launch(grad.data_ptr(), b, h, w, c, coords.data_ptr(), m,
-                MODES[padding], g_img.data_ptr())
+                MODES[padding], BWD_ROUTES.index(route), *scratch,
+                g_img.data_ptr())
     return g_img
 
 

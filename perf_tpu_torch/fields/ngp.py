@@ -151,19 +151,24 @@ def query_rgb_coords(app_params: dict, x, y, z, cfg: NGPFieldConfig,
 
 
 def query_density_ray(geo_params: dict, x, y, z, cfg: NGPFieldConfig,
-                      strides: tuple) -> torch.Tensor:
+                      strides: tuple,
+                      run_caps: tuple | None = None) -> torch.Tensor:
     """Density at ray-structured world coords [N, S] with per-level strides,
-    differentiable in the head's table and MLP."""
+    differentiable in the head's table and MLP. ``run_caps`` switches a
+    brick grid's encode to the run-dedup form (samples t-ordered along S,
+    as the march gives them); a hash grid ignores them, as in JAX."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
-    feats = cfg.grid.encode_ray(geo_params["table"], nx, ny, nz, strides)
+    feats = cfg.grid.encode_ray(geo_params["table"], nx, ny, nz, strides,
+                                run_caps)
     return _density(geo_params, feats, sel)
 
 
 def query_rgb_ray(app_params: dict, x, y, z, cfg: NGPFieldConfig,
-                  strides: tuple):
+                  strides: tuple, run_caps: tuple | None = None):
     """RGB at ray-structured world coords [N, S] -> (r, g, b)."""
     nx, ny, nz, sel = normalize_coords(cfg, x, y, z)
-    feats = cfg.grid.encode_ray(app_params["table"], nx, ny, nz, strides)
+    feats = cfg.grid.encode_ray(app_params["table"], nx, ny, nz, strides,
+                                run_caps)
     return _rgb(app_params, feats, sel)
 
 

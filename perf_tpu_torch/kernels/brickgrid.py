@@ -18,7 +18,14 @@ here for CPU tensors. Its forward kernel writes the lerped,
 level-concatenated features [N, S, L*F] itself; its backward takes the
 coarse points' cotangents (``hashgrid.lerp_levels_transpose``) and sums,
 per warp of 32 consecutive points, the runs of points in one voxel, adding
-each run's 8 corners with float4 atomics (the source says why). The
+each run's 8 corners with float4 atomics (the source says why). With run
+caps (``run_caps``: ``TrainConfig.dedup_runs``) the encode is the run-dedup
+form of ``brick_encode_ray_dedup`` (K12): on a level whose cap is below its
+point count a point reads the row of the first point of its brick run,
+the run ids clipped at the cap less 1 (``run_ids``, shared with the
+snapshot composite), and its table gradient sums each run's bf16
+contributions and rounds the sum to bf16 again; the ``brick_encode_dedup``
+kernels (``csrc/brick_encode.cu``) for CUDA tensors. The
 sphere distance field encodes all levels at once with the in-cell
 derivatives of the features (``brick_encode_stacked_grad``): the
 ``brick_encode_grad`` kernels (``csrc/brick_encode_grad.cu``), forward and
@@ -35,7 +42,8 @@ import torch
 
 from . import cuda
 from .hashgrid import (coarse_coords, kernel_plan, level_plan, level_table,
-                       lerp_levels, lerp_levels_transpose, ray_kernel_plan)
+                       lerp_levels, lerp_levels_transpose, plan_tensor,
+                       ray_kernel_plan)
 
 PRIMES = (1, 2654435761, 805459861)
 BRICK = 3          # voxels per brick edge
@@ -105,8 +113,9 @@ class BrickGridConfig:
 
     encode_coords_plain = encode_coords
 
-    def encode_ray(self, table, nx, ny, nz, strides: tuple) -> torch.Tensor:
-        return brick_encode_ray(table, nx, ny, nz, self, strides)
+    def encode_ray(self, table, nx, ny, nz, strides: tuple,
+                   run_caps: tuple | None = None) -> torch.Tensor:
+        return brick_encode_ray(table, nx, ny, nz, self, strides, run_caps)
 
 
 def brick_index(bx, by, bz, nb: int, table_rows: int) -> torch.Tensor:
@@ -136,29 +145,80 @@ _CORNER_OFFSETS = tuple(ox * 16 + oy * 4 + oz
                         for ox in (0, 1) for oy in (0, 1) for oz in (0, 1))
 
 
-def _corners(x, y, z, res: int, nb: int, rows: int):
-    """The 8 interpolation corners of each point, in the kernel's (ox, oy,
-    oz) order: (flat index into the level's [rows * 64] corner table, [...,
-    8] int64; weight (wx * wy) * wz, [..., 8] float32)."""
+def _cells(x, y, z, res: int, nb: int, rows: int):
+    """Each point's brick row ([...] int64), the first of its 8 corners in
+    the row (the corner (lx, ly, lz)) and their weights (wx * wy) * wz in
+    the kernel's (ox, oy, oz) order ([..., 8] float32)."""
     (bx, lx, fx), (by, ly, fy), (bz, lz, fz) = (
         axis_split(a, res) for a in (x, y, z))
-    first = brick_index(bx, by, bz, nb, rows) * 64 + (lx * 4 + ly) * 4 + lz
-    idx = first[..., None] + torch.tensor(_CORNER_OFFSETS, device=x.device)
     wx, wy, wz = (torch.stack([1.0 - f, f], dim=-1) for f in (fx, fy, fz))
     w = (wx[..., :, None, None] * wy[..., None, :, None]) * wz[..., None, None, :]
-    return idx, w.reshape(w.shape[:-3] + (8,))
+    return (brick_index(bx, by, bz, nb, rows), (lx * 4 + ly) * 4 + lz,
+            w.reshape(w.shape[:-3] + (8,)))
+
+
+def _corner_index(row, cell) -> torch.Tensor:
+    """Flat indices [..., 8] into a level's [rows * 64] corners of the 8
+    corners of ``cell`` in brick row ``row``."""
+    return ((row * 64 + cell)[..., None]
+            + torch.tensor(_CORNER_OFFSETS, device=row.device))
 
 
 def encode_level(table: torch.Tensor, lvl: int, x, y, z,
-                 cfg: BrickGridConfig) -> torch.Tensor:
+                 cfg: BrickGridConfig, run_cap: int = 0) -> torch.Tensor:
     """One level at coords [...] in [0, 1] -> [..., F] float32 (the
     forward of ``corner_interp_lowp``): the 8 interpolation corners of each
     point's bf16 row, weighted and summed. JAX sums all 64 * F lanes of the
-    row, 56 * F of them weighted 0."""
+    row, 56 * F of them weighted 0. With ``run_cap`` (coords [N, P]
+    t-ordered along P) each point reads its run's row instead of its own
+    (``encode_brick_level_dedup``; ``run_rows``) at its own cell and
+    fractions."""
     corners = table[lvl].to(torch.bfloat16).reshape(-1, cfg.n_features)
-    idx, w = _corners(x, y, z, cfg.level_res(lvl), cfg.level_bricks(lvl),
-                      table.shape[1])
-    return (corners[idx].float() * w[..., None]).sum(dim=-2)
+    row, cell, w = _cells(x, y, z, cfg.level_res(lvl), cfg.level_bricks(lvl),
+                          table.shape[1])
+    if run_cap:
+        row = run_rows(row, run_cap)
+    return (corners[_corner_index(row, cell)].float() * w[..., None]).sum(
+        dim=-2)
+
+
+def run_ids(rows: torch.Tensor, k: int) -> tuple:
+    """Run dedup of points t-ordered along dim 1 (``encode_brick_level_dedup``
+    and the dedup branch of ``_composite_snapshot``): rows [N, P] -> (rid
+    [N, P], the count of row changes before each point clipped at k - 1;
+    rep [N, k], candidate j's row, the row of point #{s : rid_s < j}
+    clipped at the last point)."""
+    change = (rows[:, 1:] != rows[:, :-1]).to(torch.int64)
+    rid = torch.cat([change.new_zeros((rows.shape[0], 1)),
+                     torch.cumsum(change, dim=1)], dim=1)
+    rid = torch.clamp(rid, max=k - 1)
+    cand = torch.arange(k, device=rows.device).expand(rows.shape[0], k)
+    first = torch.searchsorted(rid, cand.contiguous())
+    rep = torch.gather(rows, 1, torch.clamp(first, max=rows.shape[1] - 1))
+    return rid, rep
+
+
+def run_rows(rows: torch.Tensor, k: int) -> torch.Tensor:
+    """The row each point reads with k run candidates, rep[rid], [N, P]: its
+    own row while its run id is below k - 1, else the row of run k - 1."""
+    rid, rep = run_ids(rows, k)
+    return torch.gather(rep, 1, rid)
+
+
+def dedup_caps(strides: tuple, n_samples: int, run_caps) -> tuple | None:
+    """The run caps of one ray-form call of ``n_samples`` samples
+    (``brick_encode_ray_dedup``): a level takes the dedup encode where its
+    cap ``run_caps[l]`` (0 past the tuple's end) is not 0 and is below its
+    point count, and gets 0 (the standard encode) elsewhere. None where no
+    level takes it."""
+    if not run_caps:
+        return None
+    caps = []
+    for lvl, k in enumerate(strides):
+        kr = run_caps[lvl] if lvl < len(run_caps) else 0
+        npts = n_samples if k == 1 else n_samples // k + 1
+        caps.append(kr if kr and kr < npts else 0)
+    return tuple(caps) if any(caps) else None
 
 
 def brick_encode(table: torch.Tensor, x: torch.Tensor,
@@ -172,19 +232,28 @@ def brick_encode(table: torch.Tensor, x: torch.Tensor,
 # -- the training encode: ray-structured, per-level strides, with gradient ---
 
 def brick_points_plain(table: torch.Tensor, nx, ny, nz,
-                       cfg: BrickGridConfig, strides: tuple) -> torch.Tensor:
-    """Features [points, F] of every level's points, level after level."""
+                       cfg: BrickGridConfig, strides: tuple,
+                       caps: tuple | None = None) -> torch.Tensor:
+    """Features [points, F] of every level's points, level after level;
+    ``caps`` (``dedup_caps``) reads the dedup levels' run rows."""
     return torch.cat([
         encode_level(table, lvl, *(coarse_coords(a, k) for a in (nx, ny, nz)),
-                     cfg).reshape(-1, cfg.n_features)
+                     cfg, caps[lvl] if caps else 0).reshape(-1, cfg.n_features)
         for lvl, k in enumerate(strides)])
 
 
 def brick_points_grad_plain(table_shape, nx, ny, nz, cfg: BrickGridConfig,
-                            strides: tuple, grad: torch.Tensor):
+                            strides: tuple, grad: torch.Tensor,
+                            caps: tuple | None = None):
     """Table gradient [L, R, 64*F] float32 from the points' cotangents
     [points, F] (``_ci_bwd``): each corner's w * g rounded to bf16, then
-    scatter-added in float32."""
+    scatter-added in float32. A level with a cap in ``caps`` takes
+    ``_cid_bwd``'s rule: the rounded contributions of each (ray, run)
+    summed in float32, the sum rounded to bf16 again, then added to the
+    run's row. On the CPU a run is summed in its points' order, the
+    kernel's; ``index_add_`` on a GPU sums it in any order, and where the
+    second rounding meets a tie the entry moves by one bf16 ulp of the
+    run's sum."""
     n, s = nx.shape
     nf = cfg.n_features
     plan, _ = level_plan(cfg, strides, n, s)
@@ -192,10 +261,23 @@ def brick_points_grad_plain(table_shape, nx, ny, nz, cfg: BrickGridConfig,
     for lvl, (res, nb, _, k, npts, first) in enumerate(plan):
         xs, ys, zs = (coarse_coords(a, k) for a in (nx, ny, nz))
         g = grad[first:first + n * npts].reshape(n, npts, 1, nf)
-        idx, w = _corners(xs, ys, zs, res, nb, table_shape[1])
+        row, cell, w = _cells(xs, ys, zs, res, nb, table_shape[1])
         contrib = (w[..., None] * g).to(torch.bfloat16).float()
-        gt[lvl].view(-1, nf).index_add_(0, idx.reshape(-1),
-                                        contrib.reshape(-1, nf))
+        kr = caps[lvl] if caps else 0
+        if not kr:
+            gt[lvl].view(-1, nf).index_add_(
+                0, _corner_index(row, cell).reshape(-1),
+                contrib.reshape(-1, nf))
+            continue
+        rid, rep = run_ids(row, kr)
+        slot = torch.arange(n, device=rid.device)[:, None] * kr + rid
+        idx = _corner_index(slot, cell)
+        runs = torch.zeros((n * kr * 64, nf), dtype=torch.float32,
+                           device=grad.device)
+        runs.index_add_(0, idx.reshape(-1), contrib.reshape(-1, nf))
+        dst = (rep * 64)[..., None] + torch.arange(64, device=rep.device)
+        gt[lvl].view(-1, nf).index_add_(0, dst.reshape(-1),
+                                        runs.to(torch.bfloat16).float())
     return gt
 
 
@@ -205,55 +287,113 @@ def _check_table(cfg: BrickGridConfig, table_shape):
                          f"(2 features), got {tuple(table_shape)}")
 
 
+def _check_coords(nx, ny, nz):
+    for name, a in (("nx", nx), ("ny", ny), ("nz", nz)):
+        cuda.check(a, name, torch.float32, tuple(nx.shape), nx.device)
+
+
+def _check_caps(cfg: BrickGridConfig, caps: tuple):
+    if len(caps) != cfg.n_levels or min(caps) < 0:
+        raise ValueError(f"run caps {caps}: one cap >= 0 a level "
+                         f"({cfg.n_levels} levels)")
+
+
 def brick_encode_ray_plain(table: torch.Tensor, nx, ny, nz,
-                           cfg: BrickGridConfig,
-                           strides: tuple) -> torch.Tensor:
+                           cfg: BrickGridConfig, strides: tuple,
+                           caps: tuple | None = None) -> torch.Tensor:
     """The plain ray form: coords [N, S] -> [N, S, L*F], every level's
     coarse points encoded, lerped back to the S samples and concatenated
-    (JAX's ``brick_encode_ray``)."""
+    (JAX's ``brick_encode_ray``; with ``caps``, ``brick_encode_ray_dedup``)."""
     n, s = nx.shape
     plan, _ = level_plan(cfg, strides, n, s)
-    return lerp_levels(brick_points_plain(table, nx, ny, nz, cfg, strides),
-                       plan, n, s)
+    return lerp_levels(brick_points_plain(table, nx, ny, nz, cfg, strides,
+                                          caps), plan, n, s)
+
+
+def _forward_args(table: torch.Tensor, nx, ny, nz, cfg: BrickGridConfig,
+                  strides: tuple) -> tuple:
+    """(level plan, coarse points a ray, bf16 table, output [N, S, L*F]) of
+    a forward launch, checked."""
+    _check_coords(nx, ny, nz)
+    _check_table(cfg, table.shape)
+    levels, per_ray = ray_kernel_plan(cfg, strides, nx)
+    tbf = table.to(torch.bfloat16).contiguous()
+    cuda.check(tbf, "table", torch.bfloat16,
+               (cfg.n_levels, cfg.n_bricks, 128), nx.device)
+    n, s = nx.shape
+    out = torch.empty((n, s, cfg.out_dim), dtype=torch.float32,
+                      device=nx.device)
+    return levels, per_ray, tbf, out
 
 
 def brick_encode_ray_cuda(table: torch.Tensor, nx, ny, nz,
                           cfg: BrickGridConfig,
                           strides: tuple) -> torch.Tensor:
-    dev = nx.device
-    for name, a in (("nx", nx), ("ny", ny), ("nz", nz)):
-        cuda.check(a, name, torch.float32, tuple(nx.shape), dev)
-    _check_table(cfg, table.shape)
-    levels, per_ray = ray_kernel_plan(cfg, strides, nx)
-    tbf = table.to(torch.bfloat16).contiguous()
-    cuda.check(tbf, "table", torch.bfloat16,
-               (cfg.n_levels, cfg.n_bricks, 128), dev)
+    levels, per_ray, tbf, out = _forward_args(table, nx, ny, nz, cfg, strides)
     n, s = nx.shape
-    out = torch.empty((n, s, cfg.out_dim), dtype=torch.float32, device=dev)
     _ENCODE.launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), n, s, per_ray,
                    tbf.data_ptr(), cfg.n_bricks, levels.data_ptr(),
                    cfg.n_levels, out.data_ptr())
     return out
 
 
-def brick_points_grad_cuda(table_shape, nx, ny, nz, cfg: BrickGridConfig,
-                           strides: tuple, grad: torch.Tensor):
-    dev = nx.device
+def brick_encode_ray_dedup_cuda(table: torch.Tensor, nx, ny, nz,
+                                cfg: BrickGridConfig, strides: tuple,
+                                caps: tuple) -> torch.Tensor:
+    """The run-dedup forward (``caps`` from ``dedup_caps``; a level of cap
+    0 is encoded the standard way in the same launch)."""
+    _check_caps(cfg, caps)
+    levels, per_ray, tbf, out = _forward_args(table, nx, ny, nz, cfg, strides)
+    n, s = nx.shape
+    _ENCODE_DEDUP.launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), n, s,
+                         per_ray, tbf.data_ptr(), cfg.n_bricks,
+                         levels.data_ptr(),
+                         plan_tensor(tuple(caps), nx.device).data_ptr(),
+                         cfg.n_levels, out.data_ptr())
+    return out
+
+
+def _backward_args(table_shape, nx, ny, nz, cfg: BrickGridConfig,
+                   strides: tuple, grad: torch.Tensor) -> tuple:
+    """(level plan, the points' cotangents [points, 2] 8-byte aligned, the
+    zeroed table gradient) of a backward launch, checked."""
     _check_table(cfg, table_shape)
     levels, total = kernel_plan(cfg, strides, nx)
-    for name, a in (("nx", nx), ("ny", ny), ("nz", nz)):
-        cuda.check(a, name, torch.float32, tuple(nx.shape), dev)
+    _check_coords(nx, ny, nz)
     if nx.numel() >= 2 ** 31:
         raise ValueError(f"{nx.numel()} samples: the backward indexes "
                          "samples in int32")
     grad = grad.contiguous()
     if grad.data_ptr() % 8:           # the kernel reads a point's pair as float2
         grad = grad.clone()
-    cuda.check(grad, "grad", torch.float32, (total, 2), dev)
-    gt = torch.zeros(table_shape, dtype=torch.float32, device=dev)
+    cuda.check(grad, "grad", torch.float32, (total, 2), nx.device)
+    gt = torch.zeros(table_shape, dtype=torch.float32, device=nx.device)
+    return levels, total, grad, gt
+
+
+def brick_points_grad_cuda(table_shape, nx, ny, nz, cfg: BrickGridConfig,
+                           strides: tuple, grad: torch.Tensor):
+    levels, total, grad, gt = _backward_args(table_shape, nx, ny, nz, cfg,
+                                             strides, grad)
     _ENCODE_BWD.launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
                        nx.shape[1], cfg.n_bricks, levels.data_ptr(),
                        cfg.n_levels, total, grad.data_ptr(), gt.data_ptr())
+    return gt
+
+
+def brick_points_dedup_grad_cuda(table_shape, nx, ny, nz,
+                                 cfg: BrickGridConfig, strides: tuple,
+                                 grad: torch.Tensor, caps: tuple):
+    """The run-dedup backward of every level of the call (cap 0: the
+    standard rule)."""
+    _check_caps(cfg, caps)
+    levels, _, grad, gt = _backward_args(table_shape, nx, ny, nz, cfg,
+                                         strides, grad)
+    n, s = nx.shape
+    _ENCODE_DEDUP_BWD.launch(nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), n, s,
+                             cfg.n_bricks, levels.data_ptr(),
+                             plan_tensor(tuple(caps), nx.device).data_ptr(),
+                             cfg.n_levels, grad.data_ptr(), gt.data_ptr())
     return gt
 
 
@@ -266,47 +406,83 @@ def _register():
     bwd = cuda.register(cuda.CudaKernel(
         "brick_encode_bwd", "brick_encode.cu", "brick_encode_bwd_launch",
         args + [cuda.I32, cuda.P, cuda.I32, cuda.I64, cuda.P, cuda.P]))
-    return fwd, bwd
+    dedup = cuda.register(cuda.CudaKernel(
+        "brick_encode_dedup", "brick_encode.cu",
+        "brick_encode_dedup_fwd_launch",
+        args + [cuda.I32, cuda.I32, cuda.P, cuda.I32, cuda.P, cuda.P,
+                cuda.I32, cuda.P]))
+    dedup_bwd = cuda.register(cuda.CudaKernel(
+        "brick_encode_dedup_bwd", "brick_encode.cu",
+        "brick_encode_dedup_bwd_launch",
+        args + [cuda.I32, cuda.I32, cuda.P, cuda.P, cuda.I32, cuda.P,
+                cuda.P]))
+    return fwd, bwd, dedup, dedup_bwd
 
 
-_ENCODE, _ENCODE_BWD = _register()
+_ENCODE, _ENCODE_BWD, _ENCODE_DEDUP, _ENCODE_DEDUP_BWD = _register()
 
 
 class BrickEncode(torch.autograd.Function):
     """Features [N, S, L*F] of ray-structured coordinates [N, S] with the
     table gradient (``brick_encode_ray`` with ``corner_interp_lowp``'s
-    VJP); the coordinates get no gradient. CUDA tensors launch the kernels,
-    CPU tensors take the plain versions; the backward forms the coarse
-    points' cotangents (``lerp_levels_transpose``) and scatters them."""
+    VJP; with ``caps``, ``brick_encode_ray_dedup`` with
+    ``corner_interp_dedup``'s); the coordinates get no gradient. CUDA
+    tensors launch the kernels (``brick_encode`` / ``brick_encode_bwd``,
+    or with caps ``brick_encode_dedup`` / ``brick_encode_dedup_bwd``), CPU
+    tensors take the plain versions; the backward forms the coarse points'
+    cotangents (``lerp_levels_transpose``) and scatters them."""
 
     @staticmethod
-    def forward(ctx, table, nx, ny, nz, cfg, strides):
+    def forward(ctx, table, nx, ny, nz, cfg, strides, caps=None):
         ctx.save_for_backward(nx, ny, nz)
-        ctx.cfg, ctx.strides, ctx.table_shape = cfg, strides, table.shape
+        ctx.cfg, ctx.strides, ctx.caps = cfg, strides, caps
+        ctx.table_shape = table.shape
         if nx.is_cuda:
+            if caps:
+                return brick_encode_ray_dedup_cuda(table, nx, ny, nz, cfg,
+                                                   strides, caps)
             return brick_encode_ray_cuda(table, nx, ny, nz, cfg, strides)
         if nx.device.type != "cpu":
             raise ValueError(f"brick_encode: unsupported device {nx.device}")
-        return brick_encode_ray_plain(table, nx, ny, nz, cfg, strides)
+        return brick_encode_ray_plain(table, nx, ny, nz, cfg, strides, caps)
 
     @staticmethod
     def backward(ctx, grad):
         nx, ny, nz = ctx.saved_tensors
         n, s = nx.shape
-        plan, total = level_plan(ctx.cfg, ctx.strides, n, s)
+        cfg, strides, caps = ctx.cfg, ctx.strides, ctx.caps
+        plan, total = level_plan(cfg, strides, n, s)
         g = lerp_levels_transpose(grad, plan, n, s, total)
-        fn = brick_points_grad_cuda if grad.is_cuda else brick_points_grad_plain
-        gt = fn(ctx.table_shape, nx, ny, nz, ctx.cfg, ctx.strides, g)
-        return gt, None, None, None, None, None
+        if not grad.is_cuda:
+            gt = brick_points_grad_plain(ctx.table_shape, nx, ny, nz, cfg,
+                                         strides, g, caps)
+        elif caps:
+            gt = brick_points_dedup_grad_cuda(ctx.table_shape, nx, ny, nz,
+                                              cfg, strides, g, caps)
+        else:
+            gt = brick_points_grad_cuda(ctx.table_shape, nx, ny, nz, cfg,
+                                        strides, g)
+        return gt, None, None, None, None, None, None
 
 
 def brick_encode_ray(table: torch.Tensor, nx, ny, nz, cfg: BrickGridConfig,
-                     strides: tuple) -> torch.Tensor:
+                     strides: tuple,
+                     run_caps: tuple | None = None) -> torch.Tensor:
     """Ray-structured encode: normalised coords [N, S] -> [N, S, L*F]. Level
     l is evaluated at its strided points and lerped back to all S samples
-    (``brick_encode_ray``)."""
+    (``brick_encode_ray``). ``run_caps`` (samples t-ordered along S, as the
+    march gives them) switches the levels ``dedup_caps`` picks to the
+    run-dedup encode (``brick_encode_ray_dedup``); it gives the table
+    gradient only, so coordinates that require a gradient are refused
+    there."""
+    strides = tuple(strides)
+    caps = dedup_caps(strides, nx.shape[1], run_caps)
+    if caps and torch.is_grad_enabled() and any(
+            a.requires_grad for a in (nx, ny, nz)):
+        raise ValueError("the run-dedup encode gives the table gradient "
+                         "only; detach the coordinates")
     nx, ny, nz = (a.contiguous() for a in (nx, ny, nz))
-    return BrickEncode.apply(table, nx, ny, nz, cfg, tuple(strides))
+    return BrickEncode.apply(table, nx, ny, nz, cfg, strides, caps)
 
 
 # -- the stacked encode with derivatives (the sphere field) ------------------

@@ -44,14 +44,53 @@
 // ~0.5% (the others tie or lose to it). Blocks of 128 are ~12% faster at
 // the path's coordinates but lose to grid_sample at random ones by ~0.3%.
 //
-// Backward: each tap's weight times the sample's cotangent is added with a
-// float32 atomicAdd into the zeroed image gradient, which is what JAX's
-// transpose of the gather does (a scatter-add); the sum order changes from
-// run to run. It shares the forward's tap code (image from the grid, 32-bit
-// offsets), one sample per thread. No coordinate gradient: no caller
-// differentiates the coords.
+// Backward: JAX's transpose of the gather, a scatter-add of each tap's
+// weight times the sample's cotangent into the image gradient. Float
+// atomics would add a pixel's products in an order that changes from run
+// to run: on an H100 the image gradient of the border-padded card test
+// (many samples clamped onto one border pixel) moved by up to 1.48e-6 of
+// its largest value between launches (tools/bilinear_spread.py, 200
+// launches), past the card test's 1e-6 bar against autograd. So each of
+// the two routes sums in an order that does not change, and repeats
+// bitwise:
+//
+// sorted (few samples an image, as the distillation's 256 of a 384 x 384
+// view): one block an image zeroes the image's gradient, then takes its
+// samples 256 at a time in order; per chunk and channel it sorts the 1024
+// products by pixel (CUB's block radix sort, stable: a pixel's products
+// stay in (sample, tap) order), sums each pixel's run in float64 and adds
+// it to the pixel. The block owns its image, so nothing else writes there:
+// no atomics. Its parallelism is the image count, so it suits only a few
+// chunks an image: at [60, 384, 384, 1] it takes 0.0217 ms with 256
+// samples a view and 0.0399 with 1024, the fixed-point route 0.0335 and
+// 0.0760 (float atomics 0.0166 and 0.0196; H100 80GB HBM3, 700 W,
+// tools/bilinear_bwd_variants.py).
+//
+// fixed point (any count): every pass runs over the samples, one a thread
+// (the forward's tap code), and touches only the pixels their taps reach:
+//   1. clear: each tap's int64 accumulator and float slot set to 0 (many
+//      samples may clear one pixel), and the largest finite |cotangent| G
+//      folded into one word (atomicMax on the float's bits: order-free);
+//   2. add: each product p as the int64 llrint(p * 2^k) with one integer
+//      atomic, where 2^k puts m * G (a bound on any pixel's sum: a sample's
+//      four weights sum to 1) in [2^60, 2^61); a pixel's k products are
+//      then off the exact sum by at most k * m * G * 2^-61, far under
+//      float32's rounding; a non-finite product goes to the float slot
+//      with a float atomic instead (inf and NaN add up to the same
+//      non-finite value in any order);
+//   3. round: each tap's pixel gets its float slot plus its int64 sum
+//      scaled back and rounded once to float32 (every sample that reaches
+//      a pixel writes it the same value); the launch zeroes the image
+//      gradient first.
+// Where the samples outnumber the pixels, passes over the whole image beat
+// the scattered clear and round: at [4, 256, 512, 1] with 131,072 samples
+// an image these passes take 0.161 ms, whole-image ones 0.053 (H100,
+// tools/bilinear_bwd_variants.py); no caller has that shape yet. No
+// coordinate gradient: no caller differentiates the coords.
 
+#include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
@@ -61,6 +100,7 @@ constexpr int FWD_THREADS = 1024;
 constexpr int MAX_BATCH = 65535;   // gridDim.y
 
 enum Mode { BORDER = 0, WRAP_X = 1, ZEROS = 2 };
+enum Route { FIXED_POINT = 0, SORTED = 1 };     // the backward's
 
 struct Taps {
     int i00, i01, i10, i11;        // pixel offsets (y * W + x) in the image
@@ -154,26 +194,191 @@ bilinear_fwd_kernel(const float* __restrict__ img, int h, int w, int c_rt,
     }
 }
 
+// 2^k with m * G * 2^k in [2^60, 2^61): any pixel's fixed-point sum stays
+// below 2^61 in magnitude.
+__device__ __forceinline__ double fixed_scale(const unsigned* gmax, int m) {
+    const double bound = (double)__uint_as_float(*gmax) * (double)m;
+    return bound > 0.0 ? ldexp(1.0, 60 - ilogb(bound)) : 1.0;
+}
+
+// The pixel offsets (y * W + x) * c + ch of a sample's four taps.
+__device__ __forceinline__ void tap_slots(const Taps& t, int c, int ch,
+                                          int (&q)[4]) {
+    q[0] = t.i00 * c + ch;
+    q[1] = t.i01 * c + ch;
+    q[2] = t.i10 * c + ch;
+    q[3] = t.i11 * c + ch;
+}
+
+// Pass 1 (grid: ceil(m / THREADS) x B; *gmax starts at 0): non-negative
+// floats order as their bits do.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+bwd_clear_kernel(const float* __restrict__ grad, int h, int w, int c,
+                 const float2* __restrict__ coords, int m,
+                 unsigned* __restrict__ gmax,
+                 unsigned long long* __restrict__ acc,
+                 float* __restrict__ special) {
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    const size_t b = blockIdx.y;
+    float v = 0.0f;
+    if (i < m) {
+        const float2 rc = __ldg(coords + b * (size_t)m + i);
+        const Taps t = taps_of<MODE>(rc.x, rc.y, h, w);
+        if (t.keep) {                         // a dropped sample adds nothing
+            const size_t base = b * (size_t)h * w * c;
+            const float* g = grad + (b * (size_t)m + i) * c;
+            for (int ch = 0; ch < c; ++ch) {
+                const float a = fabsf(__ldg(g + ch));
+                if (a <= FLT_MAX) v = fmaxf(v, a);   // not inf, not NaN
+                int q[4];
+                tap_slots(t, c, ch, q);
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    acc[base + q[k]] = 0ull;
+                    special[base + q[k]] = 0.0f;
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, d));
+    if ((threadIdx.x & 31) == 0 && v > 0.0f)
+        atomicMax(gmax, __float_as_uint(v));
+}
+
+__device__ __forceinline__ void add_product(unsigned long long* acc,
+                                            float* special, int i, float p,
+                                            double scale) {
+    if (fabsf(p) <= FLT_MAX)
+        atomicAdd(acc + i, (unsigned long long)__double2ll_rn((double)p * scale));
+    else
+        atomicAdd(special + i, p);
+}
+
+// Pass 2, the same grid.
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 bilinear_bwd_kernel(const float* __restrict__ grad, int h, int w, int c,
                     const float2* __restrict__ coords, int m,
-                    float* __restrict__ grad_img) {
+                    const unsigned* __restrict__ gmax,
+                    unsigned long long* __restrict__ acc,
+                    float* __restrict__ special) {
     const int i = blockIdx.x * THREADS + threadIdx.x;
     if (i >= m) return;
     const size_t b = blockIdx.y;
     const float2 rc = __ldg(coords + b * (size_t)m + i);
     const Taps t = taps_of<MODE>(rc.x, rc.y, h, w);
     if (!t.keep) return;                      // adds only zeros
-    float* base = grad_img + b * (size_t)h * w * c;
+    const double scale = fixed_scale(gmax, m);
+    const size_t base = b * (size_t)h * w * c;
+    unsigned long long* a = acc + base;
+    float* sp = special + base;
     const float* g = grad + (b * (size_t)m + i) * c;
     for (int ch = 0; ch < c; ++ch) {
         const float gc = g[ch];
         if (gc == 0.0f) continue;
-        atomicAdd(base + t.i00 * c + ch, __fmul_rn(__fmul_rn(gc, t.ax), t.ay));
-        atomicAdd(base + t.i01 * c + ch, __fmul_rn(__fmul_rn(gc, t.wx), t.ay));
-        atomicAdd(base + t.i10 * c + ch, __fmul_rn(__fmul_rn(gc, t.ax), t.wy));
-        atomicAdd(base + t.i11 * c + ch, __fmul_rn(__fmul_rn(gc, t.wx), t.wy));
+        add_product(a, sp, t.i00 * c + ch, __fmul_rn(__fmul_rn(gc, t.ax), t.ay), scale);
+        add_product(a, sp, t.i01 * c + ch, __fmul_rn(__fmul_rn(gc, t.wx), t.ay), scale);
+        add_product(a, sp, t.i10 * c + ch, __fmul_rn(__fmul_rn(gc, t.ax), t.wy), scale);
+        add_product(a, sp, t.i11 * c + ch, __fmul_rn(__fmul_rn(gc, t.wx), t.wy), scale);
+    }
+}
+
+// Pass 3, the same grid: grad_img at each tap = its float slot plus its
+// fixed-point sum scaled back and rounded to float32.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+bwd_round_kernel(int h, int w, int c, const float2* __restrict__ coords,
+                 int m, const unsigned* __restrict__ gmax,
+                 const long long* __restrict__ acc,
+                 const float* __restrict__ special,
+                 float* __restrict__ grad_img) {
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= m) return;
+    const size_t b = blockIdx.y;
+    const float2 rc = __ldg(coords + b * (size_t)m + i);
+    const Taps t = taps_of<MODE>(rc.x, rc.y, h, w);
+    if (!t.keep) return;
+    const double inv = 1.0 / fixed_scale(gmax, m);
+    const size_t base = b * (size_t)h * w * c;
+    for (int ch = 0; ch < c; ++ch) {
+        int q[4];
+        tap_slots(t, c, ch, q);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            grad_img[base + q[k]] = __fadd_rn(
+                special[base + q[k]],
+                __double2float_rn(__ll2double_rn(acc[base + q[k]]) * inv));
+    }
+}
+
+// The sorted route (grid: B blocks). key_bits: the bits of h * w * c, the
+// key of a product that adds nothing.
+constexpr int SORT_ITEMS = 4 * THREADS;      // a chunk's taps of a channel
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+bwd_sorted_kernel(const float* __restrict__ grad, int h, int w, int c,
+                  const float2* __restrict__ coords, int m, int key_bits,
+                  float* __restrict__ grad_img) {
+    using Sort = cub::BlockRadixSort<unsigned, THREADS, 4, float>;
+    __shared__ union {
+        typename Sort::TempStorage sort;
+        struct { unsigned key[SORT_ITEMS]; float val[SORT_ITEMS]; } run;
+    } sm;
+    const size_t b = blockIdx.x;
+    const unsigned n = (unsigned)h * w * c;
+    float* gi = grad_img + b * (size_t)n;
+    if ((n & 3) == 0) {                        // gi then 16-byte aligned
+        float4* g4 = reinterpret_cast<float4*>(gi);
+        for (unsigned i = threadIdx.x; i < n / 4; i += THREADS)
+            g4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+        for (unsigned i = threadIdx.x; i < n; i += THREADS) gi[i] = 0.0f;
+    }
+    __syncthreads();
+    for (int start = 0; start < m; start += THREADS) {
+        const int i = start + threadIdx.x;
+        Taps t = {};
+        if (i < m) {
+            const float2 rc = __ldg(coords + b * (size_t)m + i);
+            t = taps_of<MODE>(rc.x, rc.y, h, w);
+        }
+        for (int ch = 0; ch < c; ++ch) {
+            const float gc = i < m && t.keep
+                ? __ldg(grad + (b * (size_t)m + i) * c + ch) : 0.0f;
+            const bool on = gc != 0.0f;        // a zero adds nothing
+            int q[4];
+            tap_slots(t, c, ch, q);
+            unsigned key[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) key[k] = on ? (unsigned)q[k] : n;
+            float val[4] = {__fmul_rn(__fmul_rn(gc, t.ax), t.ay),
+                            __fmul_rn(__fmul_rn(gc, t.wx), t.ay),
+                            __fmul_rn(__fmul_rn(gc, t.ax), t.wy),
+                            __fmul_rn(__fmul_rn(gc, t.wx), t.wy)};
+            Sort(sm.sort).Sort(key, val, 0, key_bits);   // blocked order
+            __syncthreads();
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                sm.run.key[4 * threadIdx.x + k] = key[k];
+                sm.run.val[4 * threadIdx.x + k] = val[k];
+            }
+            __syncthreads();
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {         // a run's first item sums it
+                const int j = 4 * threadIdx.x + k;
+                const unsigned px = sm.run.key[j];
+                if (px == n || (j > 0 && sm.run.key[j - 1] == px)) continue;
+                double sum = 0.0;
+                for (int l = j; l < SORT_ITEMS && sm.run.key[l] == px; ++l)
+                    sum += (double)sm.run.val[l];
+                gi[px] = __fadd_rn(gi[px], __double2float_rn(sum));
+            }
+            __syncthreads();
+        }
     }
 }
 
@@ -203,6 +408,30 @@ void dispatch_fwd(const float* img, int b, int h, int w, int c,
     }
 }
 
+template <int MODE>
+void launch_bwd(const void* grad, int b, int h, int w, int c,
+                const void* coords, int m, int route, void* acc,
+                void* special, void* gmax, void* grad_img, cudaStream_t s) {
+    const float* g = (const float*)grad;
+    const float2* co = (const float2*)coords;
+    if (route == SORTED) {
+        int bits = 1;
+        while ((1LL << bits) <= (long long)h * w * c) ++bits;
+        bwd_sorted_kernel<MODE><<<b, THREADS, 0, s>>>(
+            g, h, w, c, co, m, bits, (float*)grad_img);
+        return;
+    }
+    const dim3 grid((unsigned)((m + THREADS - 1) / THREADS), (unsigned)b);
+    unsigned* gm = (unsigned*)gmax;
+    float* sp = (float*)special;
+    bwd_clear_kernel<MODE><<<grid, THREADS, 0, s>>>(
+        g, h, w, c, co, m, gm, (unsigned long long*)acc, sp);
+    bilinear_bwd_kernel<MODE><<<grid, THREADS, 0, s>>>(
+        g, h, w, c, co, m, gm, (unsigned long long*)acc, sp);
+    bwd_round_kernel<MODE><<<grid, THREADS, 0, s>>>(
+        h, w, c, co, m, gm, (const long long*)acc, sp, (float*)grad_img);
+}
+
 }  // namespace
 
 extern "C" int bilinear_fwd_launch(const void* img, int b, int h, int w, int c,
@@ -224,24 +453,32 @@ extern "C" int bilinear_fwd_launch(const void* img, int b, int h, int w, int c,
     return (int)cudaGetLastError();
 }
 
+// route: FIXED_POINT or SORTED; for FIXED_POINT acc: B * H * W * C int64
+// scratch, special: B * H * W * C float32 scratch (neither needs a fill),
+// gmax: one uint32 scratch (SORTED reads none of them). grad_img need not
+// be zeroed.
 extern "C" int bilinear_bwd_launch(const void* grad, int b, int h, int w, int c,
                                    const void* coords, long long m, int mode,
-                                   void* grad_img, void* stream) {
-    if (h < 1 || w < 1 || c < 1 || mode < 0 || mode > 2)
+                                   int route, void* acc, void* special,
+                                   void* gmax, void* grad_img, void* stream) {
+    if (h < 1 || w < 1 || c < 1 || mode < 0 || mode > 2 || route < 0
+        || route > 1)
         return (int)cudaErrorInvalidValue;
-    if (b <= 0 || m <= 0) return (int)cudaSuccess;
-    if (!fits(b, h, w, c, m) || ((uintptr_t)coords & 7))
+    if (b <= 0) return (int)cudaSuccess;
+    if (!fits(b, h, w, c, m) || ((uintptr_t)coords & 7)
+        || ((uintptr_t)grad_img & 15)
+        || (route == FIXED_POINT && ((uintptr_t)acc & 7)))
         return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned)((m + THREADS - 1) / THREADS), (unsigned)b);
-    const float* g = (const float*)grad;
-    const float2* co = (const float2*)coords;
-    float* gi = (float*)grad_img;
     cudaStream_t s = (cudaStream_t)stream;
-    if (mode == BORDER)
-        bilinear_bwd_kernel<BORDER><<<grid, THREADS, 0, s>>>(g, h, w, c, co, (int)m, gi);
-    else if (mode == WRAP_X)
-        bilinear_bwd_kernel<WRAP_X><<<grid, THREADS, 0, s>>>(g, h, w, c, co, (int)m, gi);
-    else
-        bilinear_bwd_kernel<ZEROS><<<grid, THREADS, 0, s>>>(g, h, w, c, co, (int)m, gi);
+    if (route == FIXED_POINT) {
+        cudaError_t err = cudaMemsetAsync(
+            grad_img, 0, (size_t)b * h * w * c * sizeof(float), s);
+        if (err == cudaSuccess) err = cudaMemsetAsync(gmax, 0, 4, s);
+        if (err != cudaSuccess) return (int)err;
+        if (m <= 0) return (int)cudaSuccess;
+    }
+    if (mode == BORDER) launch_bwd<BORDER>(grad, b, h, w, c, coords, (int)m, route, acc, special, gmax, grad_img, s);
+    else if (mode == WRAP_X) launch_bwd<WRAP_X>(grad, b, h, w, c, coords, (int)m, route, acc, special, gmax, grad_img, s);
+    else launch_bwd<ZEROS>(grad, b, h, w, c, coords, (int)m, route, acc, special, gmax, grad_img, s);
     return (int)cudaGetLastError();
 }

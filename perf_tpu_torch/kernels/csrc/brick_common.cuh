@@ -96,7 +96,9 @@ __device__ __forceinline__ float2 brick_interp(const BrickCorner& c,
 // corners, weights and sums in its order, read four corners at a time: a
 // point's z pair (lz + oz, oz = 0, 1; lz <= 2) lies in the 16-byte group
 // of corners ((lx + ox) * 4 + ly + oy) * 4 + 0..3, so each (ox, oy) is one
-// 16-byte read (the same sector) instead of two 4-byte ones.
+// 16-byte read (the same sector) instead of two 4-byte ones. `interp` reads
+// row c.row at c's cell and fractions (the run-dedup encode of
+// brick_encode.cu hands it another row than the point's own).
 struct BrickLevels {
     const __nv_bfloat16* __restrict__ table;
     int rows;
@@ -104,8 +106,10 @@ struct BrickLevels {
     template <class Level>
     __device__ __forceinline__ float2 operator()(int l, const Level& L, float x,
                                                  float y, float z) const {
-        const BrickCorner c = brick_locate(x, y, z, L.res, L.lookup, L.hashed,
-                                           rows);
+        return interp(l, brick_locate(x, y, z, L.res, L.lookup, L.hashed, rows));
+    }
+
+    __device__ __forceinline__ float2 interp(int l, const BrickCorner& c) const {
         const uint4* groups = reinterpret_cast<const uint4*>(
             table + ((size_t)l * rows + c.row) * 128);
         const int lz = c.loc[2];

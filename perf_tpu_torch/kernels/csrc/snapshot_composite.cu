@@ -1,9 +1,10 @@
 // snapshot_composite: expand the marched windows into samples, read the
 // baked snapshot table and composite, one thread per ray.
 //
-// Replaces (JAX): perf_tpu/render/snapshot.py _composite_snapshot (non-dedup)
-// together with perf_tpu/render/renderer.py _windows_to_samples, as run by
-// _snapshot_chunk_planned / _snapshot_chunk.
+// Replaces (JAX): perf_tpu/render/snapshot.py _composite_snapshot together
+// with perf_tpu/render/renderer.py _windows_to_samples, as run by
+// _snapshot_chunk_planned / _snapshot_chunk: the standard instance, and the
+// run-dedup instance (K12, dedup_k > 0: snapshot_composite_dedup_launch).
 //
 // Per sample: t_mid = near + ((widx * c) + (s + 0.5) * stride) * step and
 // valid = wvalid * (t_mid < far); the point's brick row in the dense
@@ -23,6 +24,16 @@
 // neighbouring rows. The JAX path materialises a [rays, samples, 256] row
 // tensor; nothing of that size exists here.
 //
+// The dedup instance (JAX: one row gathered per brick run, K candidates,
+// expanded back with a one-hot product, which is the bf16 row itself): the
+// thread numbers the row changes along all S slots of its ray, the padding
+// windows' and the samples past far included (their rows count runs, as
+// JAX's rows of every slot do), and a sample whose run id (clipped at K - 1)
+// reached K - 1 reads the row of run K - 1's first sample at its own cell
+// and fractions; the others read their own row. The scan is sequential in
+// the thread, as the composite is; where K covers every run of a ray, every
+// value equals the standard instance's bitwise.
+//
 // Compiled with -fmad=false and written with rounding intrinsics for the
 // sample positions, so the brick rows match the float32 reference.
 
@@ -34,6 +45,7 @@ namespace {
 
 constexpr int THREADS = 128;
 
+template <bool DEDUP>
 __global__ void __launch_bounds__(THREADS)
 composite_kernel(const float* __restrict__ rays_o,
                  const float* __restrict__ rays_d, long long n,
@@ -41,7 +53,7 @@ composite_kernel(const float* __restrict__ rays_o,
                  int n_win, const __nv_bfloat16* __restrict__ table, int res,
                  int nb, float near, float far, float step, int c, int stride,
                  int spw, float tau_scale, float aabb_min, float span,
-                 float bg_distance, float* __restrict__ rgb,
+                 float bg_distance, int k_runs, float* __restrict__ rgb,
                  float* __restrict__ distance, float* __restrict__ opacity) {
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
@@ -53,9 +65,10 @@ composite_kernel(const float* __restrict__ rays_o,
     }
     const float fres = (float)res, fc = (float)c, fst = (float)stride;
     float excl = 0.0f, op = 0.0f, dist = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
+    int run = -1, prev = -1, star = 0;   // the dedup scan: run id, last row, R*
     for (int k = 0; k < n_win; ++k) {
         float wv = wvalid[i * n_win + k];
-        if (wv == 0.0f) continue;   // padding slot: weight 0, tau 0
+        if (!DEDUP && wv == 0.0f) continue;   // padding slot: weight 0, tau 0
         float base = __fmul_rn((float)widx[i * n_win + k], fc);
         for (int s = 0; s < spw; ++s) {
             float fine = __fmul_rn(__fadd_rn((float)s, 0.5f), fst);
@@ -76,8 +89,17 @@ composite_kernel(const float* __restrict__ rays_o,
                 b[a] = c0 / 3;
                 loc[a] = c0 - 3 * b[a];
             }
+            int brick = (b[0] * nb + b[1]) * nb + b[2];
+            if (DEDUP) {
+                if (brick != prev) {
+                    if (++run == k_runs - 1) star = brick;
+                    prev = brick;
+                }
+                if (run >= k_runs - 1) brick = star;
+                if (wv == 0.0f) continue;   // padding slot: counted, weight 0
+            }
             const uint2* row = reinterpret_cast<const uint2*>(
-                table + ((size_t)((b[0] * nb + b[1]) * nb) + b[2]) * 256);
+                table + (size_t)brick * 256);
             float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
             for (int ox = 0; ox < 2; ++ox) {
@@ -122,18 +144,51 @@ composite_kernel(const float* __restrict__ rays_o,
 
 }  // namespace
 
+namespace {
+
+int composite_launch(bool dedup, const void* rays_o, const void* rays_d,
+                     long long n, const void* widx, const void* wvalid,
+                     int n_win, const void* table, int res, int nb, float near,
+                     float far, float step, int c, int stride, int spw,
+                     float tau_scale, float aabb_min, float span,
+                     float bg_distance, int k_runs, void* rgb, void* distance,
+                     void* opacity, void* stream) {
+    if (n <= 0) return (int)cudaSuccess;
+    long long blocks = (n + THREADS - 1) / THREADS;
+    auto kernel = dedup ? composite_kernel<true> : composite_kernel<false>;
+    kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)rays_o, (const float*)rays_d, n, (const int*)widx,
+        (const float*)wvalid, n_win, (const __nv_bfloat16*)table, res, nb, near,
+        far, step, c, stride, spw, tau_scale, aabb_min, span, bg_distance,
+        k_runs, (float*)rgb, (float*)distance, (float*)opacity);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int snapshot_composite_launch(
         const void* rays_o, const void* rays_d, long long n, const void* widx,
         const void* wvalid, int n_win, const void* table, int res, int nb,
         float near, float far, float step, int c, int stride, int spw,
         float tau_scale, float aabb_min, float span, float bg_distance,
         void* rgb, void* distance, void* opacity, void* stream) {
-    if (n <= 0) return (int)cudaSuccess;
-    long long blocks = (n + THREADS - 1) / THREADS;
-    composite_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)rays_o, (const float*)rays_d, n, (const int*)widx,
-        (const float*)wvalid, n_win, (const __nv_bfloat16*)table, res, nb, near,
-        far, step, c, stride, spw, tau_scale, aabb_min, span, bg_distance,
-        (float*)rgb, (float*)distance, (float*)opacity);
-    return (int)cudaGetLastError();
+    return composite_launch(false, rays_o, rays_d, n, widx, wvalid, n_win,
+                            table, res, nb, near, far, step, c, stride, spw,
+                            tau_scale, aabb_min, span, bg_distance, 0, rgb,
+                            distance, opacity, stream);
+}
+
+// k_runs: the run candidates K of the chunk (1 <= K; the wrapper passes
+// K < S only).
+extern "C" int snapshot_composite_dedup_launch(
+        const void* rays_o, const void* rays_d, long long n, const void* widx,
+        const void* wvalid, int n_win, const void* table, int res, int nb,
+        float near, float far, float step, int c, int stride, int spw,
+        float tau_scale, float aabb_min, float span, float bg_distance,
+        int k_runs, void* rgb, void* distance, void* opacity, void* stream) {
+    if (k_runs < 1) return (int)cudaErrorInvalidValue;
+    return composite_launch(true, rays_o, rays_d, n, widx, wvalid, n_win,
+                            table, res, nb, near, far, step, c, stride, spw,
+                            tau_scale, aabb_min, span, bg_distance, k_runs, rgb,
+                            distance, opacity, stream);
 }

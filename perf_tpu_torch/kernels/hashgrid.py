@@ -115,7 +115,10 @@ class HashGridConfig:
     def encode_coords_plain(self, table, x, y, z) -> torch.Tensor:
         return hash_encode_coords_plain(table, x, y, z, self)
 
-    def encode_ray(self, table, nx, ny, nz, strides: tuple) -> torch.Tensor:
+    def encode_ray(self, table, nx, ny, nz, strides: tuple,
+                   run_caps: tuple | None = None) -> torch.Tensor:
+        """``run_caps`` is ignored: the run dedup is a brick-grid encode (JAX
+        routes only brick grids to it)."""
         return hash_encode_ray(table, nx, ny, nz, self, strides)
 
 

@@ -44,8 +44,8 @@ from ..kernels.hashgrid import level_strides
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """The JAX ``RenderConfig`` without the knobs of unported paths
-    (``remat``, ``adaptive_eval``, ``run_caps``) and of the flat march
-    (``hier_march``: the march is always hierarchical)."""
+    (``remat``, ``adaptive_eval``) and of the flat march (``hier_march``:
+    the march is always hierarchical)."""
     near: float = 0.0
     far: float = 1.5
     step: float = 5e-4
@@ -64,6 +64,11 @@ class RenderConfig:
     eval_rgb_windows: int = 4
     sample_stride: int = 1
     eval_chunk: int = 32768   # rays per eval-render chunk (render_image)
+    # per-level brick-run caps of the run-dedup encode (brick grids; the
+    # training steps' config carries the episode's probed caps,
+    # TrainConfig.dedup_runs; shade_rays_eval reads none, as JAX's eval);
+    # None = the standard encode
+    run_caps: tuple | None = None
 
     @property
     def n_march(self) -> int:
@@ -458,7 +463,8 @@ def shade_rays(params: dict, field_cfg, rays_o, rays_d, t_mid, valid,
     no_grad = torch.no_grad if stop_geo_grad else contextlib.nullcontext
     with no_grad():
         sigma = query_density_ray(params["geo"], px, py, pz, field_cfg,
-                                  _strides(field_cfg, cfg, s))
+                                  _strides(field_cfg, cfg, s),
+                                  cfg.run_caps)
     # where-select, not multiply: a saturated density at a padding sample
     # must give 0, never inf * 0 = NaN
     sigma = torch.where(valid > 0.0, sigma, torch.zeros_like(sigma))
@@ -476,12 +482,14 @@ def shade_rays(params: dict, field_cfg, rays_o, rays_d, t_mid, valid,
             pk = [torch.gather(p, 1, sidx) for p in (px, py, pz)]
             with no_grad():
                 r, g, b = query_rgb_ray(params["app"], *pk, field_cfg,
-                                        _strides(field_cfg, cfg, kw * c))
+                                        _strides(field_cfg, cfg, kw * c),
+                                        cfg.run_caps)
             w_det = torch.gather(weights, 1, sidx)
         else:
             with no_grad():
                 r, g, b = query_rgb_ray(params["app"], px, py, pz, field_cfg,
-                                        _strides(field_cfg, cfg, s))
+                                        _strides(field_cfg, cfg, s),
+                                        cfg.run_caps)
             w_det = weights
         colors = torch.stack([torch.sum(w_det * r, dim=-1),
                               torch.sum(w_det * g, dim=-1),

@@ -8,11 +8,19 @@ device bake ``:142-203``, ``snapshot_render_cfg``, ``_composite_snapshot``,
 [nb^3, 256] bf16 table hold (sigma, r, g, b) of a brick's 4^3 corners,
 lane = ((cx*4 + cy)*4 + cz)*4 + f, bricks overlapping by one corner.
 
+With ``dedup_ratio`` a chunk whose budget S exceeds its K =
+``dedup_k_for(ratio, S)`` run candidates composites with run dedup (K12,
+JAX's dedup branch of ``_composite_snapshot``): a sample reads the row of
+the first sample of its brick run, the run ids (row changes along all S
+slots of the ray, padding slots included) clipped at K - 1
+(``brickgrid.run_ids``).
+
 Kernels (CUDA tensors): the bake runs ``field_eval`` (``fields/ngp.py``)
 and ``bake_scatter_pack``; a frame runs ``march_windows``
-(``render/renderer.py``) and ``snapshot_composite``. CPU tensors take the
-plain versions. Not ported: ``frame_dispatch``, ``dedup_ratio`` and
-``bake_host`` (all off in production).
+(``render/renderer.py``) and ``snapshot_composite`` (with K < S its dedup
+instance, ``snapshot_composite_dedup``). CPU tensors take the plain
+versions. Not ported: ``frame_dispatch`` and ``bake_host`` (both off in
+production).
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch.nn.functional as F
 
 from ..fields.ngp import NGPFieldConfig, field_eval
 from ..kernels import cuda
-from ..kernels.brickgrid import BRICK, axis_split
+from ..kernels.brickgrid import BRICK, axis_split, run_rows
 from .renderer import (
     RenderConfig, beam_dilation, coarse_occ_grid, count_occupied_windows,
     frame_march_plan, march_windows, march_windows_plain, windows_to_samples,
@@ -42,6 +50,10 @@ class SnapshotConfig:
     # snapshot march window (fine steps); None -> RenderConfig.march_coarse
     march_coarse: int | None = None
     bake_chunk: int = 1 << 21   # field evaluations per bake launch
+    # run dedup in the composite: K = dedup_k_for(ratio, S) run candidates
+    # a ray; 0.0 = off (a ray with more runs than K reads the row of run
+    # K - 1 past it: an approximation, off in production)
+    dedup_ratio: float = 0.0
 
     @property
     def n_bricks(self) -> int:
@@ -75,6 +87,15 @@ def snapshot_render_cfg(render_cfg: RenderConfig,
     max_samples = max(render_cfg.march_coarse // stride, 256 // stride)
     return dataclasses.replace(render_cfg, sample_stride=stride,
                                max_samples=max_samples)
+
+
+def dedup_k_for(ratio: float, samples: int) -> int:
+    """The composite's run candidates at a chunk budget of ``samples``
+    (``_dedup_k_for``): ceil(ratio * samples) rounded up to a multiple of
+    8, at least 8; 0 with ratio 0."""
+    if not ratio:
+        return 0
+    return int(max(8, -(-ratio * samples // 8) * 8))
 
 
 # -- bake ----------------------------------------------------------------------
@@ -172,24 +193,43 @@ def bake_snapshot(params: dict, field_cfg: NGPFieldConfig,
 
 # -- composite -------------------------------------------------------------------
 
+def _sample_coords(rays_o, rays_d, t_mid, field_cfg: NGPFieldConfig):
+    """Normalised sample coordinates, each [N, S] (the composite's)."""
+    span = field_cfg.aabb_max - field_cfg.aabb_min
+    return tuple((rays_o[:, a:a + 1] + rays_d[:, a:a + 1] * t_mid
+                  - field_cfg.aabb_min) / span for a in range(3))
+
+
+def snapshot_rows(rays_o, rays_d, t_mid, field_cfg: NGPFieldConfig,
+                  res: int) -> torch.Tensor:
+    """The dense bake table's brick row of every sample slot [N, S], valid
+    or not: what the composite's run dedup numbers runs of."""
+    nb = res // BRICK + 1
+    b = [axis_split(a, res)[0]
+         for a in _sample_coords(rays_o, rays_d, t_mid, field_cfg)]
+    return b[0] * (nb * nb) + b[1] * nb + b[2]
+
+
 def composite_snapshot_plain(table, rays_o, rays_d, widx, wvalid,
                              field_cfg: NGPFieldConfig, cfg: RenderConfig,
-                             res: int) -> dict:
+                             res: int, dedup_k: int = 0) -> dict:
     """Windows -> samples -> one table row per sample -> interpolated
     (sigma, r, g, b) -> eval composite. Returns rgb [N, 3], distance
     [N, 1], opacity [N, 1]. Reads only the 8 corners of each sample's row
-    (4 features each), so memory stays [N, S, 4]."""
+    (4 features each), so memory stays [N, S, 4]. With 0 < ``dedup_k`` <
+    S each sample reads its run's row (``run_rows`` over all S slots)."""
     t_mid, valid = windows_to_samples(widx, wvalid, cfg)
-    span = field_cfg.aabb_max - field_cfg.aabb_min
-    nx, ny, nz = ((rays_o[:, a:a + 1] + rays_d[:, a:a + 1] * t_mid
-                   - field_cfg.aabb_min) / span for a in range(3))
+    nx, ny, nz = _sample_coords(rays_o, rays_d, t_mid, field_cfg)
     sel = ((nx > 0.0) & (nx < 1.0) & (ny > 0.0) & (ny < 1.0)
            & (nz > 0.0) & (nz < 1.0)).float()
     bx, lx, fx = axis_split(nx, res)
     by, ly, fy = axis_split(ny, res)
     bz, lz, fz = axis_split(nz, res)
     nb = res // BRICK + 1
-    base = (bx * (nb * nb) + by * nb + bz) * 64
+    rows = bx * (nb * nb) + by * nb + bz
+    if dedup_k and dedup_k < t_mid.shape[1]:
+        rows = run_rows(rows, dedup_k)
+    base = rows * 64
     corners = table.view(-1, SNAP_F)
     vals = torch.zeros(t_mid.shape + (SNAP_F,), dtype=torch.float32,
                        device=t_mid.device)
@@ -216,18 +256,26 @@ def composite_snapshot_plain(table, rays_o, rays_d, widx, wvalid,
             "opacity": opacity}
 
 
+_COMPOSITE_ARGS = [
+    cuda.P, cuda.P, cuda.I64, cuda.P, cuda.P, cuda.I32, cuda.P, cuda.I32,
+    cuda.I32, cuda.F32, cuda.F32, cuda.F32, cuda.I32, cuda.I32, cuda.I32,
+    cuda.F32, cuda.F32, cuda.F32, cuda.F32]
 _COMPOSITE = cuda.register(cuda.CudaKernel(
     "snapshot_composite", "snapshot_composite.cu",
     "snapshot_composite_launch",
-    [cuda.P, cuda.P, cuda.I64, cuda.P, cuda.P, cuda.I32, cuda.P, cuda.I32,
-     cuda.I32, cuda.F32, cuda.F32, cuda.F32, cuda.I32, cuda.I32, cuda.I32,
-     cuda.F32, cuda.F32, cuda.F32, cuda.F32, cuda.P, cuda.P, cuda.P],
+    _COMPOSITE_ARGS + [cuda.P, cuda.P, cuda.P], extra_flags=("-fmad=false",)))
+_COMPOSITE_DEDUP = cuda.register(cuda.CudaKernel(
+    "snapshot_composite_dedup", "snapshot_composite.cu",
+    "snapshot_composite_dedup_launch",
+    _COMPOSITE_ARGS + [cuda.I32, cuda.P, cuda.P, cuda.P],
     extra_flags=("-fmad=false",)))
 
 
 def composite_snapshot_cuda(table, rays_o, rays_d, widx, wvalid,
                             field_cfg: NGPFieldConfig, cfg: RenderConfig,
-                            res: int) -> dict:
+                            res: int, dedup_k: int = 0) -> dict:
+    """The ``snapshot_composite`` kernel, or with 0 < ``dedup_k`` < S its
+    dedup instance ``snapshot_composite_dedup``."""
     n, k = widx.shape
     nb = res // BRICK + 1
     dev = rays_o.device
@@ -236,33 +284,39 @@ def composite_snapshot_cuda(table, rays_o, rays_d, widx, wvalid,
     cuda.check(widx, "widx", torch.int32, (n, k), dev)
     cuda.check(wvalid, "wvalid", torch.float32, (n, k), dev)
     cuda.check(table, "table", torch.bfloat16, (nb ** 3, 64 * SNAP_F), dev)
+    if dedup_k < 0:
+        raise ValueError(f"dedup_k={dedup_k}")
     rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
     distance = torch.empty((n, 1), dtype=torch.float32, device=dev)
     opacity = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    _COMPOSITE.launch(
-        rays_o.data_ptr(), rays_d.data_ptr(), n, widx.data_ptr(),
-        wvalid.data_ptr(), k, table.data_ptr(), res, nb, float(cfg.near),
-        float(cfg.far), float(cfg.step), cfg.march_coarse, cfg.sample_stride,
-        cfg.samples_per_window, float(cfg.step * cfg.sample_stride),
-        float(field_cfg.aabb_min),
-        float(field_cfg.aabb_max - field_cfg.aabb_min),
-        float(cfg.eval_bg_distance), rgb.data_ptr(), distance.data_ptr(),
-        opacity.data_ptr())
+    args = (rays_o.data_ptr(), rays_d.data_ptr(), n, widx.data_ptr(),
+            wvalid.data_ptr(), k, table.data_ptr(), res, nb, float(cfg.near),
+            float(cfg.far), float(cfg.step), cfg.march_coarse,
+            cfg.sample_stride, cfg.samples_per_window,
+            float(cfg.step * cfg.sample_stride), float(field_cfg.aabb_min),
+            float(field_cfg.aabb_max - field_cfg.aabb_min),
+            float(cfg.eval_bg_distance))
+    outs = (rgb.data_ptr(), distance.data_ptr(), opacity.data_ptr())
+    if dedup_k and dedup_k < k * cfg.samples_per_window:
+        _COMPOSITE_DEDUP.launch(*args, dedup_k, *outs)
+    else:
+        _COMPOSITE.launch(*args, *outs)
     return {"rgb": rgb, "distance": distance, "opacity": opacity}
 
 
 def composite_snapshot(table, rays_o, rays_d, widx, wvalid,
                        field_cfg: NGPFieldConfig, cfg: RenderConfig,
-                       res: int) -> dict:
+                       res: int, dedup_k: int = 0) -> dict:
     """Snapshot composite of marched windows: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors; ``dedup_k`` run candidates
+    (0: off; it acts where it is below the S samples of a ray)."""
     if rays_o.is_cuda:
         return composite_snapshot_cuda(table, rays_o, rays_d, widx, wvalid,
-                                       field_cfg, cfg, res)
+                                       field_cfg, cfg, res, dedup_k)
     if rays_o.device.type != "cpu":
         raise ValueError(f"composite_snapshot: unsupported {rays_o.device}")
     return composite_snapshot_plain(table, rays_o, rays_d, widx, wvalid,
-                                    field_cfg, cfg, res)
+                                    field_cfg, cfg, res, dedup_k)
 
 
 # -- frames ----------------------------------------------------------------------
@@ -290,9 +344,11 @@ def render_snapshot_image(table: torch.Tensor, field_cfg: NGPFieldConfig,
 
     [H, W] frames with H, W divisible by 4 use the beam plan
     (``frame_march_plan``) unless the beam is wider than 3 coarse voxels;
-    other ray sets march per ray. ``plain=True`` runs the plain versions of
-    the march and the composite on any device (a measurement baseline); the
-    default dispatches on the tensors' device."""
+    other ray sets march per ray. Each chunk composites at its own budget
+    S with K = ``dedup_k_for(snap_cfg.dedup_ratio, S)`` run candidates.
+    ``plain=True`` runs the plain versions of the march and the composite
+    on any device (a measurement baseline); the default dispatches on the
+    tensors' device."""
     march = march_windows_plain if plain else march_windows
     composite = composite_snapshot_plain if plain else composite_snapshot
     cfg = snapshot_render_cfg(render_cfg, snap_cfg)
@@ -349,7 +405,8 @@ def render_snapshot_image(table: torch.Tensor, field_cfg: NGPFieldConfig,
             widx, wvalid = march(occ_grid, o[sl], d[sl], cfg_c,
                                  coarse=coarse)[:2]
         outs.append(composite(table, o[sl], d[sl], widx, wvalid, field_cfg,
-                              cfg_c, snap_cfg.res))
+                              cfg_c, snap_cfg.res,
+                              dedup_k_for(snap_cfg.dedup_ratio, budgets[ci])))
     ret = {}
     for q in query_keys:
         cat = torch.cat([c[q] for c in outs])[:n]

@@ -9,7 +9,9 @@ app steps, ``_run_phase``, ``fit``, ``bake_snapshot``, ``render_snapshot``,
    ``occ_grid`` kernel), fixed for the episode;
 2. a fresh geometry head;
 3. the per-episode sample budget and bucket plan, from the occupied-window
-   counts of 16,384 pool rays (the one host read-back of the episode);
+   counts of 16,384 pool rays (the one host read-back of the episode), and
+   with ``dedup_runs`` on a brick field the run caps of the dedup encode
+   (``probe_run_caps``: the same rays marched at the budget);
 4. the geometry phase: depth smooth-L1 (beta 1e-2) plus the ramped
    distortion loss, appearance frozen;
 5. the appearance phase: colour smooth-L1 (beta 5e-2), geometry frozen;
@@ -45,10 +47,11 @@ from ..core.optim import GuardedAdam
 from ..fields import NGPFieldConfig, init_ngp_params, reset_geo
 from ..fields.ngp import query_density_coords, query_density_ray
 from ..kernels import cuda
-from ..kernels.brickgrid import level_table
+from ..kernels.brickgrid import BRICK, BrickGridConfig, level_table
+from ..kernels.hashgrid import coarse_coords, level_strides
 from ..render import RenderConfig
 from ..render.renderer import (coarse_occ_grid, count_occupied_windows,
-                               render_image, render_rays,
+                               march_rays, render_image, render_rays,
                                render_rays_bucketed)
 from ..render.snapshot import (SnapshotConfig, bake_snapshot,
                                render_snapshot_image)
@@ -59,6 +62,7 @@ from .sup_pool import _visibility_mask_core
 
 PRUNE_CHUNK = 1 << 21      # voxels per prune chunk; one jitter table for all
 PRUNE_TAU = 1e-2           # nerfacc's occupancy threshold on density * 5e-3
+RUN_CAP_SLACK = 8          # runs a probed cap adds over the worst probe ray
 
 
 def pano_visibility_from_distance(sup_pool, rays: Rays,
@@ -187,6 +191,10 @@ class TrainConfig:
     # unchanged; engaged only where they divide the window and the budget)
     app_sample_stride: int = 2
     geo_sample_stride: int = 2
+    # the run-dedup encode (K12) on the training steps of a brick field:
+    # per-level caps probed each episode (NeRFScene.probe_run_caps); a hash
+    # field gets none and the proposal estimator reads none, as in JAX
+    dedup_runs: bool = False
     # prune the pool shell with the previous episode's field, from the
     # second episode on
     occ_field_prune: bool = False
@@ -224,6 +232,8 @@ class NeRFScene:
         self.global_iter_app = 0
         self.sample_budget: int | None = None
         self.bucket_plan: tuple | None = None
+        # the episode's run caps (TrainConfig.dedup_runs; probe_run_caps)
+        self.run_caps: tuple | None = None
         # baked table (render/snapshot.py); stale whenever the field changes
         self.snapshot: torch.Tensor | None = None
         self.snap_cfg = snap_cfg or SnapshotConfig()
@@ -246,19 +256,22 @@ class NeRFScene:
         return (arrs["rays_o"][idx], arrs["rays_d"][idx], arrs["colors"][idx],
                 arrs["distances"][idx])
 
-    def select_sample_budget(self, arrs: dict, probe_rays: int = 16384) -> int:
+    def select_sample_budget(self, arrs: dict, probe_rays: int = 16384,
+                             jitter: torch.Tensor | None = None) -> int:
         """Smallest safe ``max_samples`` for the episode's occupancy grid
         and the two-budget bucket plan: the occupied-window counts of a
         uniform subsample of the pool over the full ladder, +1 window of
-        slack, rounded up to a multiple of 16 samples."""
+        slack, rounded up to a multiple of 16 samples. With ``dedup_runs``
+        it also sets ``run_caps`` (``probe_run_caps`` on the same rays,
+        ``jitter`` passed on)."""
         rc, tc = self.render_cfg, self.train_cfg
         n_valid = arrs["n_valid"]
         n = min(probe_rays, n_valid)
         idx = torch.from_numpy(np.linspace(0, n_valid - 1, n).astype(
             np.int64)).to(self.device)
-        counts = count_occupied_windows(
-            self.occ_grid, arrs["rays_o"][idx].contiguous(),
-            arrs["rays_d"][idx].contiguous(), rc).cpu().numpy()
+        o = arrs["rays_o"][idx].contiguous()
+        d = arrs["rays_d"][idx].contiguous()
+        counts = count_occupied_windows(self.occ_grid, o, d, rc).cpu().numpy()
         mc = rc.march_coarse
         worst = int(counts.max()) + 1
         budget = max(4 * mc, -(-worst * mc // 16) * 16)
@@ -274,16 +287,60 @@ class NeRFScene:
             if s_low < budget and n_high < batch \
                     and frac_high * batch * 8.0 <= n_high:
                 self.bucket_plan = (s_low, n_high)
+
+        self.run_caps = None
+        if tc.dedup_runs:
+            self.run_caps = self.probe_run_caps(o, d, budget, jitter)
         return budget
+
+    def probe_run_caps(self, o: torch.Tensor, d: torch.Tensor, budget: int,
+                       jitter: torch.Tensor | None = None) -> tuple | None:
+        """Per-level run caps of the dedup encode (``_probe_run_caps``):
+        one stratified march of the probe rays at the episode budget
+        (``jitter`` [n, 1], one draw from the scene's generator unless
+        given); levels whose stride at the budget exceeds 2 get 0, the
+        others the worst per-ray count of brick-id changes (unhashed ids,
+        ``res // 3 + 1`` bricks an axis) + 1 + RUN_CAP_SLACK, kept only where
+        it is below the level's point count. None for a hash grid, or
+        where every cap is 0."""
+        grid = self.field_cfg.grid
+        if not isinstance(grid, BrickGridConfig):
+            return None
+        rc = dataclasses.replace(self.render_cfg, max_samples=budget)
+        if jitter is None:
+            jitter = self._uniform(o.shape[0], 1)
+        t_mid, _ = march_rays(self.occ_grid, o, d, rc, jitter)
+        pts = o[:, None, :] + d[:, None, :] * t_mid[:, :, None]
+        fc = self.field_cfg
+        x01 = torch.clamp((pts - fc.aabb_min) / (fc.aabb_max - fc.aabb_min),
+                          0.0, 1.0)
+        strides = level_strides(grid, rc.step, budget)
+        caps = []
+        for lvl, k in enumerate(strides):
+            if k > 2:
+                caps.append(0)
+                continue
+            xs = coarse_coords(x01, k)
+            res = grid.level_res(lvl)
+            c0 = torch.div(torch.clamp(torch.floor(xs * res), 0, res - 1)
+                           .to(torch.int64), BRICK, rounding_mode="floor")
+            nbk = res // BRICK + 1
+            r = c0[..., 0] * nbk * nbk + c0[..., 1] * nbk + c0[..., 2]
+            worst = int(((r[:, 1:] != r[:, :-1]).sum(1) + 1).max())
+            cap = worst + RUN_CAP_SLACK
+            caps.append(cap if cap < xs.shape[1] else 0)
+        return tuple(caps) if any(caps) else None
 
     def phase_render_cfg(self, phase: str):
         """(RenderConfig, bucket plan or None) of a phase: the episode
-        budget, and the phase's sample stride where it divides the window
-        and the budget (``_get_phase_fn``)."""
+        budget and run caps, and the phase's sample stride where it divides
+        the window and the budget (``_get_phase_fn``)."""
         tc = self.train_cfg
         budget = self.sample_budget or self.render_cfg.max_samples
         plan = self.bucket_plan if tc.bucket_train else None
-        rc = dataclasses.replace(self.render_cfg, max_samples=budget)
+        caps = self.run_caps if tc.dedup_runs else None
+        rc = dataclasses.replace(self.render_cfg, max_samples=budget,
+                                 run_caps=caps)
         stride = tc.app_sample_stride if phase == "app" else tc.geo_sample_stride
         if (stride > 1 and rc.march_coarse % stride == 0
                 and budget % (2 * stride) == 0):

@@ -33,10 +33,12 @@ from perf_tpu_torch.render.snapshot import (
     bake_corners, bake_scatter_pack, bake_scatter_pack_plain, bake_snapshot,
     composite_snapshot, composite_snapshot_cuda, composite_snapshot_plain)
 from perf_tpu_torch.kernels.brickgrid import (
-    BrickEncode, brick_encode_ray, brick_encode_ray_cuda,
-    brick_encode_ray_plain, brick_index, brick_points_grad_cuda,
-    brick_points_grad_plain)
-from perf_tpu_torch.kernels.hashgrid import (level_plan, lerp_levels,
+    BrickEncode, axis_split, brick_encode_ray, brick_encode_ray_cuda,
+    brick_encode_ray_dedup_cuda, brick_encode_ray_plain, brick_index,
+    brick_points_dedup_grad_cuda, brick_points_grad_cuda,
+    brick_points_grad_plain, dedup_caps)
+from perf_tpu_torch.kernels.hashgrid import (coarse_coords, level_plan,
+                                             lerp_levels,
                                              lerp_levels_transpose)
 from perf_tpu_torch.render.occgrid import (occ_grid_from_points,
                                            occ_grid_from_points_cuda,
@@ -46,7 +48,8 @@ from perf_tpu_torch.render.renderer import (
     count_occupied_windows_plain, shade_composite, shade_composite_cuda,
     shade_composite_plain)
 from perf_tpu_torch.core import bilinear_sample
-from perf_tpu_torch.core.resample import (bilinear_sample_cuda,
+from perf_tpu_torch.core.resample import (SORTED_MAX_SAMPLES,
+                                          bilinear_sample_cuda,
                                           bilinear_sample_grad_cuda,
                                           bilinear_sample_plain)
 from perf_tpu_torch.kernels.brickgrid import (
@@ -344,6 +347,23 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
         brick_points_grad_cuda(params["geo"]["table"].shape, x, x, x,
                                TINY.grid, strides, torch.zeros(32 * 4, 2))
     with pytest.raises(ValueError, match="CUDA"):
+        brick_encode_ray_dedup_cuda(params["geo"]["table"], x, x, x,
+                                    TINY.grid, strides, (2, 2, 0, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        brick_points_dedup_grad_cuda(params["geo"]["table"].shape, x, x, x,
+                                     TINY.grid, strides,
+                                     torch.zeros(32 * 4, 2), (2, 2, 0, 3))
+    with pytest.raises(ValueError, match="one cap >= 0 a level"):
+        brick_encode_ray_dedup_cuda(params["geo"]["table"], x, x, x,
+                                    TINY.grid, strides, (2, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        composite_snapshot_cuda(table, o, d, widx, widx.float(), TINY, cfg,
+                                SNAP.res, dedup_k=1)
+    # the dedup encode gives no position gradient
+    with pytest.raises(ValueError, match="detach the coordinates"):
+        brick_encode_ray(params["geo"]["table"], x.clone().requires_grad_(),
+                         x, x, TINY.grid, strides, (2, 2, 0, 3))
+    with pytest.raises(ValueError, match="CUDA"):
         count_occupied_windows_cuda(occ, o, d, cfg)
     with pytest.raises(ValueError, match="CUDA"):
         shade_composite_cuda(x, x, x, 0.01)
@@ -503,6 +523,13 @@ def test_plain_path_counts_no_launch():
     x = torch.rand(8, 16)
     t = params["geo"]["table"].clone().requires_grad_(True)
     BrickEncode.apply(t, x, x, x, TINY.grid, (2, 1, 1, 1)).sum().backward()
+    # the K12 plain routes: the dedup encode with its backward, and the
+    # snapshot composite with run candidates
+    xs = torch.sort(x, dim=1).values
+    brick_encode_ray(t, xs, xs, xs, TINY.grid, (2, 1, 1, 1),
+                     (3, 2, 0, 4)).sum().backward()
+    composite_snapshot(table, o, d, widx, wvalid, TINY, cfg, SNAP.res,
+                       dedup_k=1)
     count_occupied_windows(occ, o, d, cfg)
     shade_composite(x.requires_grad_(True), x, torch.ones_like(x), 0.01)[1] \
         .sum().backward()
@@ -545,7 +572,8 @@ def test_plain_path_counts_no_launch():
         "hash_encode_smooth", "hash_encode_smooth_bwd", "hash_encode_grad",
         "hash_encode_grad_bwd", "prop_resample", "prop_weights",
         "prop_weights_bwd", "prop_loss", "prop_loss_bwd", "ngp_mlp",
-        "ngp_mlp_bwd"}
+        "ngp_mlp_bwd", "brick_encode_dedup", "brick_encode_dedup_bwd",
+        "snapshot_composite_dedup"}
     assert all(v == 0 for v in cuda.counts().values())
 
 
@@ -557,6 +585,8 @@ def test_importing_the_anchor_slice_never_imports_jax():
             "perf_tpu_torch.kernels.gather, "
             "perf_tpu_torch.tools.bench_pallas_encode, "
             "perf_tpu_torch.tools.bilinear_variants, "
+            "perf_tpu_torch.tools.bilinear_spread, "
+            "perf_tpu_torch.tools.bilinear_bwd_variants, "
             "perf_tpu_torch.tools.encode_probe, "
             "perf_tpu_torch.tools.mlp_probe, perf_tpu_torch.kernels.ngp_mlp, "
             "perf_tpu_torch.priors.pano_refiner, "
@@ -734,7 +764,9 @@ def test_bilinear_kernels_match_plain(gpu, c, padding):
     count the main path passes (1, 2, 3, 7), one the generic instantiation
     takes (5), and C = 2 on an image and coords that are not 8-byte
     aligned; B > 1, a sample count no block divides, coords past the
-    image."""
+    image. The backward's fixed-point route at every sample, its sorted
+    route at the first SORTED_MAX_SAMPLES samples of each image (the most
+    it takes)."""
     dev = gpu[0]
     nc = 2 if c == "2 misaligned" else c
     img_np, coords_np, cot_np = bilinear_case(nc, padding, 11)
@@ -755,12 +787,26 @@ def test_bilinear_kernels_match_plain(gpu, c, padding):
     # the same taps, products and sums in JAX's order: bitwise
     assert torch.equal(got, ref)
     cot = torch.from_numpy(cot_np).to(dev)
-    gi = bilinear_sample_grad_cuda(tuple(img.shape), coords, padding, cot)
-    leaf = img.clone().requires_grad_(True)
-    (gi_ref,) = torch.autograd.grad(bilinear_sample_plain(leaf, coords,
-                                                          padding), leaf, cot)
-    # float atomics add the same products in an order that changes
-    assert ((gi - gi_ref).abs().max() / gi_ref.abs().max()).item() <= 1e-6
+    for route, m in (("fixed_point", coords.shape[1]),
+                     ("sorted", SORTED_MAX_SAMPLES)):
+        co_r, cot_r = coords[:, :m], cot[:, :m].contiguous()
+        if m < coords.shape[1]:
+            co_r = co_r.contiguous()
+        gi = bilinear_sample_grad_cuda(tuple(img.shape), co_r, padding,
+                                       cot_r, route)
+        leaf = img.clone().requires_grad_(True)
+        (gi_ref,) = torch.autograd.grad(bilinear_sample_plain(
+            leaf, co_r, padding), leaf, cot_r)
+        # the same products: the kernel sums them in fixed point and rounds
+        # once, or sorts them by pixel and sums each pixel's in float64 a
+        # chunk of 256 samples, autograd with float atomics in an order
+        # that changes (on an H100 its own spread read up to 3.05e-7 over
+        # 200 launches, perf_tpu_torch/tools/bilinear_spread.py)
+        assert ((gi - gi_ref).abs().max()
+                / gi_ref.abs().max()).item() <= 1e-6, route
+        # neither route's sums depend on the order of its threads
+        assert torch.equal(bilinear_sample_grad_cuda(
+            tuple(img.shape), co_r, padding, cot_r, route), gi), route
 
 
 @pytest.mark.cuda
@@ -812,6 +858,158 @@ def test_brick_encode_bwd_kernel_matches_plain_on_hard_plans(gpu, case):
     # the same bf16-rounded contributions, summed in float32 in another
     # order (per group of equal corners, then by float atomics)
     assert ((gt - ref).norm() / ref.norm()).item() <= 1e-6
+
+
+# -- the run-dedup encode and composite (K12) -----------------------------------
+
+DEDUP_CASES = ("one_run", "over_cap", "hashed", "misaligned_tail")
+
+
+def ray_runs(x, y, z, grid, strides) -> list:
+    """Per level, the most brick runs (changes of the encode's row, hashed
+    where the level hashes, + 1) of any ray's coarse points."""
+    out = []
+    for lvl, k in enumerate(strides):
+        res, nb = grid.level_res(lvl), grid.level_bricks(lvl)
+        b = [axis_split(coarse_coords(a, k), res)[0] for a in (x, y, z)]
+        rows = brick_index(*b, nb, grid.n_bricks)
+        out.append(int(((rows[:, 1:] != rows[:, :-1]).sum(1) + 1).max()))
+    return out
+
+
+def dedup_case(name: str, device):
+    """One hard input of the dedup encode on the TINY grid (levels 2 and 3
+    hashed): (x, y, z [N, S], strides, caps). ``one_run``: every ray's
+    points in one brick of every level; ``over_cap``: rays across the cube
+    with more runs than every cap (cap 1 on one level: every point reads
+    the first point's row); ``hashed``: caps on the hashed levels only, 80
+    samples a ray (warp walks of 32 + 32 + 16 points); ``misaligned_tail``:
+    257 rays (no multiple of a tile), coordinates 4 bytes past a 16-byte
+    boundary."""
+    if name == "one_run":
+        rng = np.random.default_rng(90)
+        n, s = 37, 48
+        lo = np.array([0.503, 0.497, 0.51])
+        pts = lo + np.sort(rng.uniform(0.0, 4e-3, (n, s, 3)), axis=1)
+        x, y, z = (torch.from_numpy(np.ascontiguousarray(
+            pts[..., a], np.float32)).to(device) for a in range(3))
+        return x, y, z, (1, 2, 1, 4), (2, 2, 3, 2)
+    base = {"over_cap": "tail", "hashed": "s80",
+            "misaligned_tail": "misaligned"}[name]
+    x, y, z, strides = fwd_case(base, TINY.grid.n_levels, device)
+    caps = {"over_cap": (2, 3, 5, 1), "hashed": (0, 0, 7, 9),
+            "misaligned_tail": (2, 20, 4, 6)}[name]
+    return x, y, z, strides, caps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DEDUP_CASES)
+def test_brick_encode_dedup_kernels_match_plain(gpu, case):
+    """The dedup forward against its plain version within K1's forward's
+    1e-6 (the same rows and corners, float32 sums in another order), one
+    launch; the dedup backward against a second launch within 1e-6
+    relative norm (each run summed in its points' order, rounded twice;
+    float atomics across rays) and against its plain version within 1e-5
+    (``index_add_`` on the card sums a run in any order: at most 0.1% of
+    the entries may move by a second rounding on a tie, each by at most
+    one bf16 ulp of its |g| sum); the gradient through ``BrickEncode`` is
+    the dedup backward's."""
+    dev, params, _ = gpu
+    x, y, z, strides, caps = dedup_case(case, dev)
+    grid = TINY.grid
+    n, s = x.shape
+    assert dedup_caps(strides, s, caps) == caps
+    runs = ray_runs(*(a.cpu() for a in (x, y, z)), grid, strides)
+    if case == "one_run":
+        assert runs == [1] * grid.n_levels
+    if case == "over_cap":
+        assert all(r > c for r, c in zip(runs, caps))
+    table = params["geo"]["table"]
+    t = table.clone().requires_grad_(True)
+    before = cuda.counts()
+    got = brick_encode_ray(t, x, y, z, grid, strides, caps)
+    after = cuda.counts()
+    assert after["brick_encode_dedup"] == before["brick_encode_dedup"] + 1
+    assert after["brick_encode"] == before["brick_encode"]
+    ref = brick_encode_ray_plain(table, x, y, z, grid, strides, caps)
+    err = (got - ref).abs().max().item()
+    print(f"{case}: forward max abs err {err:.3g}")
+    assert err <= 1e-6
+    gen = torch.Generator(device=dev).manual_seed(DEDUP_CASES.index(case))
+    g = torch.randn(got.shape, generator=gen, device=dev)
+    got.backward(g)
+    assert cuda.counts()["brick_encode_dedup_bwd"] == \
+        before["brick_encode_dedup_bwd"] + 1
+    plan, total = level_plan(grid, strides, n, s)
+    cot = lerp_levels_transpose(g, plan, n, s, total)
+    cs = [a.contiguous() for a in (x, y, z)]
+    want = brick_points_grad_plain(table.shape, *cs, grid, strides, cot, caps)
+    again = brick_points_dedup_grad_cuda(table.shape, *cs, grid, strides,
+                                         cot, caps)
+    g_abs = brick_points_grad_plain(table.shape, *cs, grid, strides,
+                                    cot.abs(), caps).double()
+    assert want.norm().item() > 0
+    for name, gt, bar in (("plain", want, 1e-5), ("rerun", again, 1e-6)):
+        rel = ((t.grad - gt).norm() / gt.norm()).item()
+        diff = (t.grad - gt).abs().double()
+        ulp = torch.exp2(torch.floor(torch.log2(g_abs.clamp_min(1e-38))) - 7)
+        moved = (diff > 1e-6 * g_abs).double().mean().item()
+        print(f"{case}: backward vs {name}: relative norm {rel:.3g}, "
+              f"{moved:.3g} of the entries moved")
+        assert rel <= bar and moved <= 1e-3
+        assert bool((diff <= ulp + 1e-6 * g_abs).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("over_cap", "hashed", "misaligned_tail"))
+def test_brick_encode_dedup_with_covering_caps_equals_k1_bitwise(gpu, case):
+    """Caps that cover every run of every ray (and stay below the point
+    counts): the dedup forward reads every point's own row, so it equals
+    the standard forward bitwise."""
+    dev, params, _ = gpu
+    x, y, z, strides, _ = dedup_case(case, dev)
+    s = x.shape[1]
+    runs = ray_runs(*(a.cpu() for a in (x, y, z)), TINY.grid, strides)
+    caps = dedup_caps(strides, s, tuple(runs))
+    assert caps is not None
+    table = params["geo"]["table"]
+    assert torch.equal(
+        brick_encode_ray_dedup_cuda(table, x, y, z, TINY.grid, strides, caps),
+        brick_encode_ray_cuda(table, x, y, z, TINY.grid, strides))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_runs", [1, 3, 8, "cover"])
+def test_snapshot_composite_dedup_kernel_matches_plain(gpu, k_runs):
+    """The dedup composite against its plain version at the standard
+    composite's tolerances, one launch of the dedup instance; K that covers
+    every run of every ray (padding slots included) gives the standard
+    kernel's values bitwise."""
+    from perf_tpu_torch.render.renderer import windows_to_samples
+    from perf_tpu_torch.render.snapshot import snapshot_rows
+    dev, params, occ = gpu
+    cfg = snapshot_render_cfg(RENDER, SNAP)
+    o, d = _rays(3001, 5, dev)
+    widx, wvalid = march_windows(occ, o, d, cfg,
+                                 coarse=coarse_occ_grid(occ, 64))[:2]
+    table = bake_snapshot(params, TINY, occ, 64, SNAP)
+    t_mid, _ = windows_to_samples(widx, wvalid, cfg)
+    rows = snapshot_rows(o, d, t_mid, TINY, SNAP.res)
+    runs = int(((rows[:, 1:] != rows[:, :-1]).sum(1) + 1).max())
+    k = runs if k_runs == "cover" else k_runs
+    assert k < t_mid.shape[1]
+    args = (table, o, d, widx, wvalid, TINY, cfg, SNAP.res)
+    before = cuda.counts()["snapshot_composite_dedup"]
+    out = composite_snapshot(*args, dedup_k=k)
+    assert cuda.counts()["snapshot_composite_dedup"] == before + 1
+    want = composite_snapshot_plain(*args, dedup_k=k)
+    for key, tol in (("rgb", 2e-5), ("opacity", 2e-5), ("distance", 1e-4)):
+        assert (out[key] - want[key]).abs().max().item() <= tol, key
+    std = composite_snapshot(*args)
+    if k_runs == "cover":
+        assert all(torch.equal(out[key], std[key]) for key in out)
+    elif k_runs == 1:
+        assert not torch.equal(out["opacity"], std["opacity"])
 
 
 @pytest.mark.cuda
