@@ -107,12 +107,19 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    ``kernels/ngp_mlp.py``) are held against their plain versions for the
    density head at the brick and hash steps' shapes on their trained
    fields, the colour head at the steps' window gather, and the proposal
-   head at level 0's points of a prop step (forward: at most 0.1% of the
-   outputs off by > 1e-4 relative; backward: dx, dW0, dW1 bf16-valued
-   within one bf16 ulp, but an entry of dW0 or dW1 may lie farther where
-   it is no farther from its float64 sum than the plain version is, plus
-   one ulp; the last layer within 1e-5 relative norm, a second launch
-   bitwise), each timed beside its plain version and the
+   head at level 0's points of a prop step, the colour head at a prop app
+   step's points (forward: at most 0.1% of the outputs off by > 1e-4
+   relative; backward: dx, dW0, dW1 bf16-valued, dx within one bf16 ulp
+   or within the span that the moves the float32 sums' order can carry
+   to it allow (a hidden output or cotangent rounded the other way on a
+   bf16 tie, a ReLU decided the other way within its pre-activation's
+   reach of zero: ``fields/mlp.py`` ``bf16_head_reach``), an entry of dW0
+   or dW1 past one ulp no farther from its float64 sum than the plain
+   version is, plus one ulp and its terms' reach, the last layer within
+   1e-5 relative norm plus its terms' reach; on the points no tie
+   reaches, one ulp, the float64 sums and 1e-5 alone; three controls
+   that must fail; the proposal head's gradients within 1e-5; a second
+   launch bitwise), each timed beside its plain version and the
    PyTorch route it replaced (the plain forward under autograd and its
    autograd backward); the step profiles give the MLP's launches, bound
    and time a step (recorded by wrapping its wrappers), the hash bake's
@@ -305,13 +312,15 @@ ENCODE_WRAPPERS = {
     ("brickgrid", "brick_encode_ray_dedup_cuda"): ("brick_dedup_fwd_kernel",),
     ("brickgrid", "brick_points_dedup_grad_cuda"): ("brick_dedup_bwd_kernel",)}
 # the MLP kernels' labels in a trace: the forward, the backward (its tiles
-# and the sum of its blocks' partials)
-MLP_LABELS = {"fwd": ("mlp_fwd_kernel",),
-              "bwd": ("mlp_bwd_kernel", "mlp_grad_reduce_kernel")}
-# the MLP forward against its plain version: float32 sums in another order
-# than cuBLAS's put a hidden unit on the other side of a bf16 rounding tie
-# now and then (field_eval's forward reads 0.042% of outputs off by > 1e-4);
-# at most this share of outputs may be off by > 1e-4 relative
+# and the sum of its blocks' partials); the bf16 heads' tensor-core
+# kernels, then the proposal head's float32 ones
+MLP_LABELS = {"fwd": ("mlp_fwd_kernel", "mlp_f32_fwd_kernel"),
+              "bwd": ("mlp_bwd_kernel", "mlp_f32_bwd_kernel",
+                      "mlp_grad_reduce_kernel")}
+# the MLP against its plain version: float32 sums in another order than
+# cuBLAS's put a hidden unit on the other side of a bf16 rounding tie now
+# and then (field_eval's forward reads 0.042% of outputs off by > 1e-4); at
+# most this share of the forward's outputs may be off by > 1e-4 relative
 MLP_LOOSE_SHARE = 1e-3
 # the hash backward against its plain version and a second launch,
 # relative norm of the table gradient: the same float32 contributions,
@@ -1188,25 +1197,113 @@ def _hash_bwd_row(grid, nx, ny, nz, strides, gen) -> dict:
         **encode_bound(grid, n, s, strides, backward=True)}
 
 
+def _exact_hidden_last(ws, x, sel, raw, g, head):
+    """The bf16 head's last-layer gradient over hidden outputs whose own sums
+    ran in float64 (each rounded to float32 once, then to bf16): no float32
+    sum order decides which way they round. Float64 [64, C]."""
+    import torch
+    from perf_tpu_torch.fields.mlp import _bf16, head_epilogue_grad
+    h = _bf16(x)
+    for w in ws[:-1]:
+        h = _bf16(torch.relu((h.double() @ _bf16(w).double()).float()))
+    return h.double().T @ head_epilogue_grad(raw, sel, g, head).T.double()
+
+
+def _mlp_bf16_checks(ws, x, sel, raw, g, head, got, want) -> dict:
+    """A bf16 head's backward ``got`` against the plain version's ``want``
+    by ``fields/mlp.py`` ``bf16_grads_within`` on the full cotangent (dx
+    within one bf16 ulp or the span of the moves the sums' order can carry
+    to it, ``bf16_head_reach``; the weight gradients by their float64 sums
+    plus the reach of their terms; the last layer within 1e-5 plus its
+    terms' reach), then on the points no tie reaches (``tie_free``, the
+    cotangent zero elsewhere: one ulp, the float64 sums, 1e-5, as for any
+    two float32 sums of the same terms), with three controls that must
+    fail: dx with five of its nonzero rows zeroed, the tie-free last layer
+    with the 64-point tile of the cotangent whose terms weigh most dropped,
+    the forward with its hidden outputs left unrounded."""
+    import torch
+    from perf_tpu_torch.fields.mlp import (_bf16, bf16_grad_sums_f64,
+                                           bf16_grads_within, bf16_head_reach,
+                                           head_epilogue, ngp_head_bwd_plain,
+                                           ngp_head_bwd_terms, ngp_head_plain)
+    from perf_tpu_torch.kernels.ngp_mlp import ngp_mlp_bwd_cuda
+
+    def flat(t):
+        return [t[0], *t[1]]
+
+    def judge(g_, got_, want_):
+        reach = bf16_head_reach(ws, x, sel, raw, g_, head)
+        sums = bf16_grad_sums_f64(ws, x, sel, raw, g_, head)
+        return reach, sums, bf16_grads_within(got_, want_, sums, reach)
+
+    name = f"ngp_mlp_bwd ({head.name}, {x.shape[0]})"
+    reach, sums, full = judge(g, got, want)
+    check(all(full["ok"].values()), f"{name}: {full}")
+    bad = [t.clone() for t in got]
+    rows = torch.nonzero(want[0].abs().sum(dim=1) > 0).flatten()[-5:]
+    bad[0][rows] = 0.0
+    ctrl_dx = bf16_grads_within(bad, want, sums, reach)
+    check(not ctrl_dx["ok"]["dx"], f"{name}: dx with five rows zeroed "
+          f"passes: {ctrl_dx}")
+    tie_free = reach["tie_free"]
+    g2 = g * tie_free
+    got2 = flat(ngp_mlp_bwd_cuda(ws, x, sel, raw, g2, head))
+    want2 = flat(ngp_head_bwd_plain(ws, x, sel, raw, g2, head))
+    reach2, sums2, free = judge(g2, got2, want2)
+    check(all(free["ok"].values())
+          and all(bool((t == 0).all()) for t in reach2["terms"]),
+          f"{name}, tie-free points: {free}")
+    # the 64-point tile whose terms of the tie-free last layer weigh most,
+    # dropped
+    acts, _, d, _ = ngp_head_bwd_terms(ws, x, sel, raw, g2, head,
+                                       need_dx=False)
+    weight = acts[-1].abs().sum(dim=1) * d.abs().sum(dim=1)
+    weight = torch.nn.functional.pad(weight, (0, -weight.shape[0] % 64))
+    tile = int(weight.view(-1, 64).sum(dim=1).argmax())
+    g3 = g2.clone()
+    g3[:, 64 * tile:64 * tile + 64] = 0.0
+    drop = flat(ngp_head_bwd_plain(ws, x, sel, raw, g3, head))
+    ctrl_tile = bf16_grads_within(drop, want2, sums2, reach2)
+    check(not ctrl_tile["ok"]["last"], f"{name}: a dropped tile passes: "
+          f"{ctrl_tile}")
+    h = _bf16(x)
+    for w in ws[:-1]:
+        h = torch.relu(h @ _bf16(w))
+    unrounded = head_epilogue((h @ ws[-1]).T, sel, head)
+    ref = ngp_head_plain(ws, x, sel, head)[0]
+    ctrl_fwd = ((unrounded - ref).abs() > 1e-4 * ref.abs()).float().mean()
+    check(ctrl_fwd.item() > MLP_LOOSE_SHARE, f"{name}: the forward with its "
+          f"hidden outputs unrounded passes ({ctrl_fwd.item()})")
+    exact = _exact_hidden_last(ws, x, sel, raw, g, head)
+    return {"max_ulps": full["max_ulps"], "past_one_ulp": full["past_ulp"],
+            "last_rel": full["last_rel"],
+            "tie_free_share": tie_free.float().mean().item(),
+            "tie_free": {k: free[k] for k in ("max_ulps", "past_ulp",
+                                              "last_rel")},
+            "last_rel_to_exact_hidden": {
+                k: ((v.double() - exact).norm() / exact.norm()).item()
+                for k, v in (("kernel", got[-1]), ("plain", want[-1]))},
+            "controls": {"dx_rows_zeroed_past_bound":
+                         ctrl_dx["past_reach"]["dx"],
+                         "tile_dropped_last_rel": ctrl_tile["last_rel"],
+                         "fwd_unrounded_loose_share": ctrl_fwd.item()}}
+
+
 def _mlp_rows(head, ws, x, sel, gen) -> tuple:
     """``ngp_mlp`` and ``ngp_mlp_bwd`` rows of one head at inputs x [M, din]
     inside sel: the forward against ``ngp_head_plain`` (at most
     MLP_LOOSE_SHARE of the outputs off by > 1e-4 relative: bf16 ties), the
     backward on the kernel's raw outputs and cotangents from ``gen``
-    against ``ngp_head_bwd_plain`` (the bf16 heads' gradients bf16-valued;
-    dx, a 64-term sum, within one bf16 ulp; dW0 and dW1, sums of a term a
-    point, within one bf16 ulp but where the plain version's float32 sum
-    is itself off the float64 sum of its terms, ``_bf16_weight_grads_f64``:
-    there an entry must be no farther from the float64 sum than the plain
-    version is, plus one bf16 ulp; their last layer within 1e-5 relative
-    norm; the float32 proposal head's gradients all within 1e-5) and
-    against a second launch (bitwise); each timed beside its plain version
-    and the PyTorch route (the plain forward under autograd, its backward
-    by autograd)."""
+    against ``ngp_head_bwd_plain`` (the bf16 heads by ``_mlp_bf16_checks``;
+    the float32 proposal head's gradients all within 1e-5 relative norm)
+    and against a second launch (bitwise); each timed beside its plain
+    version and the PyTorch route (the plain forward under autograd, its
+    backward by autograd)."""
     import torch
     from perf_tpu_torch.fields.mlp import ngp_head_bwd_plain, ngp_head_plain
-    from perf_tpu_torch.kernels.ngp_mlp import (ngp_mlp_bwd_cuda,
+    from perf_tpu_torch.kernels.ngp_mlp import (bwd_blocks, ngp_mlp_bwd_cuda,
                                                 ngp_mlp_fwd_cuda)
+    from perf_tpu_torch.tools.mlp_probe import grad_reduce_cuda, kernel_facts
     m, din = x.shape
     out, raw = ngp_mlp_fwd_cuda(ws, x, sel, head, save_raw=True)
     ref, _ = ngp_head_plain(ws, x, sel, head)
@@ -1219,48 +1316,14 @@ def _mlp_rows(head, ws, x, sel, gen) -> tuple:
     want = ngp_head_bwd_plain(ws, x, sel, raw, g, head)
     got, again, want = ([t[0], *t[1]] for t in (got, again, want))
     rerun = all(torch.equal(a, b) for a, b in zip(got, again))
-    n_bf16 = len(got) - 1 if head.bf16 else 0
-    exact = ([None] + _bf16_weight_grads_f64(ws, x, sel, raw, g, head)
-             if n_bf16 else [])
-
-    def bf16_ulp(t):
-        return torch.where(t > 0, torch.exp2(torch.floor(torch.log2(
-            t.clamp_min(1e-300))) - 7), torch.ones_like(t))
-    ulps, over_n, f64_ulps = 0.0, 0, {"kernel": 0.0, "plain": 0.0}
-    for a, b, e in zip(got[:n_bf16], want[:n_bf16], exact):
-        check(torch.equal(a, a.to(torch.bfloat16).float()),
-              f"ngp_mlp_bwd ({head.name}): a gradient not bf16-valued")
-        a, b = a.double(), b.double()
-        big = torch.maximum(a.abs(), b.abs())
-        if e is not None:
-            big = torch.maximum(big, e.abs())
-        ulp = bf16_ulp(big)
-        off = (a - b).abs()
-        over = off > ulp
-        ulps = max(ulps, (off / ulp).max().item())
-        over_n += int(over.sum())
-        if e is None:                   # dx: one ulp, every entry
-            check(not bool(over.any()), f"ngp_mlp_bwd ({head.name}, {m}): "
-                  f"dx {ulps} bf16 ulps from the plain version")
-            continue
-        far_k, far_p = (a - e).abs(), (b - e).abs()
-        f64_ulps["kernel"] = max(f64_ulps["kernel"], (far_k / ulp).max().item())
-        f64_ulps["plain"] = max(f64_ulps["plain"], (far_p / ulp).max().item())
-        check(bool((far_k[over] <= far_p[over] + ulp[over]).all()),
-              f"ngp_mlp_bwd ({head.name}, {m}): a weight gradient entry "
-              "past one bf16 ulp of the plain version and farther from the "
-              "float64 sum than the plain version plus one ulp")
-    rel = max(((a - b).norm() / b.norm()).item() if b.norm() > 0 else
-              a.abs().max().item() for a, b in zip(got[n_bf16:],
-                                                   want[n_bf16:]))
-    check(rerun and rel <= 1e-5,
-          f"ngp_mlp_bwd ({head.name}, {m}): rerun {rerun}, {ulps} bf16 ulps "
-          f"at most ({over_n} entries past one), rel {rel}")
-    # both float32 sums of the last layer's gradient against the same terms
-    # summed in float64
-    ref64 = _last_layer_f64(head, ws, x, sel, raw, g)
-    f64 = {k: ((v.double() - ref64).norm() / ref64.norm()).item()
-           for k, v in (("kernel", got[-1]), ("plain", want[-1]))}
+    check(rerun, f"ngp_mlp_bwd ({head.name}, {m}): a second launch differs")
+    if head.bf16:
+        checks = _mlp_bf16_checks(ws, x, sel, raw, g, head, got, want)
+    else:
+        rel = max(((a - b).norm() / b.norm()).item() for a, b in
+                  zip(got, want))
+        check(rel <= 1e-5, f"ngp_mlp_bwd ({head.name}, {m}): rel {rel}")
+        checks = {"rel_norm_err": rel}
     lx = x.clone().requires_grad_(True)
     lws = [w.detach().clone().requires_grad_(True) for w in ws]
     route = [ngp_head_plain(lws, lx, sel, head)[0]]
@@ -1268,25 +1331,31 @@ def _mlp_rows(head, ws, x, sel, gen) -> tuple:
     def route_fwd():
         route[0] = ngp_head_plain(lws, lx, sel, head)[0]
     common = {"head": head.name, "shape": [m, din]}
+    # the backward's second kernel alone: the sum of the blocks' partial
+    # rows at this call's grid
+    n_w = sum(w.numel() for w in ws)
+    part = torch.randn((bwd_blocks(head, m, x.device), n_w), generator=gen,
+                       device=x.device)
+    n_round = n_w - ws[-1].numel() if head.bf16 else 0
     fwd = {**common, "max_abs_err": (out - ref).abs().max().item(),
            "loose_share": loose,
            "ms": cuda_ms(lambda: ngp_mlp_fwd_cuda(ws, x, sel, head,
                                                   save_raw=True), 20),
            "plain_ms": cuda_ms(lambda: ngp_head_plain(ws, x, sel, head), 5),
            "pytorch_route_ms": cuda_ms(route_fwd, 5),
+           "build": kernel_facts(head, backward=False),
            **mlp_bound(head, m, din)}
     bwd = {**common, "max_abs_err": max((a - b).abs().max().item()
                                         for a, b in zip(got, want)),
-           "max_ulps": ulps, "over_one_ulp_entries": over_n,
-           "weight_grads_max_ulps_from_f64": f64_ulps,
-           "rel_norm_err": rel, "rerun_equal": rerun,
-           "last_layer_rel_f64": f64,
+           **checks, "rerun_equal": rerun,
            "ms": cuda_ms(lambda: ngp_mlp_bwd_cuda(ws, x, sel, raw, g,
                                                   head), 20),
            "plain_ms": cuda_ms(lambda: ngp_head_bwd_plain(ws, x, sel, raw,
                                                           g, head), 5),
            "pytorch_route_ms": cuda_ms(lambda: torch.autograd.grad(
                route[0], [lx, *lws], g, retain_graph=True), 5),
+           "reduce_ms": cuda_ms(lambda: grad_reduce_cuda(part, n_round), 20),
+           "build": kernel_facts(head, backward=True),
            **mlp_bound(head, m, din, backward=True)}
     return fwd, bwd
 
@@ -1304,56 +1373,6 @@ def dedup_grad_moves(got, want, g_abs) -> tuple:
     moved = diff > 1e-6 * mag
     return (moved.double().mean().item(),
             bool((diff <= ulp + 1e-6 * mag).all()))
-
-
-def _bf16_weight_grads_f64(ws, x, sel, raw, g, head) -> list:
-    """The bf16 head's hidden layers' weight gradients (dW0, dW1) from the
-    plain backward's float32 terms (its bf16 hidden values and bf16
-    cotangents, each product exact in float32), summed over the points in
-    float64. Where the terms cancel, a float32 sum of the 131,072 terms of
-    the colour head's step can land several bf16 ulps off this sum, and two
-    float32 sums in other orders more than one ulp apart (2.0 ulps between
-    the kernel and the plain version on one entry in one H100 run)."""
-    import torch
-    from perf_tpu_torch.fields.mlp import head_epilogue_grad
-
-    def rnd(t):
-        return t.to(torch.bfloat16).float()
-    h = rnd(x)
-    acts, pres = [h], []
-    for w in ws[:-1]:
-        pre = h @ rnd(w)
-        pres.append(pre)
-        h = rnd(torch.relu(pre))
-        acts.append(h)
-    d = head_epilogue_grad(raw, sel, g, head).T
-    w_last = ws[-1]
-    # the plain version's channel-order sum of the last hidden cotangent
-    d_h = d[:, :1] * w_last[:, 0]
-    for c in range(1, w_last.shape[1]):
-        d_h = d_h + d[:, c:c + 1] * w_last[:, c]
-    out = [None] * len(pres)
-    for i in reversed(range(len(pres))):
-        d_pre = torch.where(pres[i] > 0, rnd(d_h), torch.zeros_like(d_h))
-        out[i] = acts[i].double().T @ d_pre.double()
-        d_h = d_pre @ rnd(ws[i]).T
-    return out
-
-
-def _last_layer_f64(head, ws, x, sel, raw, g):
-    """The last layer's weight gradient from the plain version's float32
-    terms (the last hidden layer's outputs, the raw outputs' cotangents),
-    summed in float64."""
-    import torch
-    from perf_tpu_torch.fields.mlp import head_epilogue_grad
-
-    def rnd(t):
-        return t.to(torch.bfloat16).float() if head.bf16 else t
-    h = rnd(x)
-    for w in ws[:-1]:
-        h = rnd(torch.relu(h @ rnd(w)))
-    d = head_epilogue_grad(raw, sel, g, head).T
-    return h.double().T @ d.double()
 
 
 def _mlp_step_inputs(runner, head, seed: int) -> tuple:
@@ -1384,11 +1403,14 @@ def _mlp_step_inputs(runner, head, seed: int) -> tuple:
 
 
 def compare_mlp_kernels(runner, hash_runner, prop_runner, seed: int) -> dict:
-    """The MLP kernels (both heads, forward and backward) against their
+    """The MLP kernels (every head, forward and backward) against their
     plain versions at the brick and hash steps' shapes on their trained
-    fields, the colour head at the step's window gather, and the proposal
-    head at level 0's points of a prop step's cascade (8192 x 128)."""
+    fields, the colour head at the step's window gather, the proposal head
+    at level 0's points of a prop step's cascade (8192 x 128) and the
+    colour head at the prop step's final points (8192 x 64, the largest
+    MLP launch of any step)."""
     import torch
+    from perf_tpu_torch.fields import normalize_coords
     from perf_tpu_torch.fields.mlp import APP_HEAD, GEO_HEAD, PROP_HEAD
     from perf_tpu_torch.kernels.hashgrid import hash_encode
     from perf_tpu_torch.train.prop_scene import PROP_FIELD_CFGS
@@ -1405,7 +1427,7 @@ def compare_mlp_kernels(runner, hash_runner, prop_runner, seed: int) -> dict:
                          ("app_hash", hash_runner, APP_HEAD)):
         measure(tag, head, r.scene.params[head.name]["mlp"]["w"],
                 *_mlp_step_inputs(r, head, seed))
-    levels, _ = _prop_inputs(prop_runner, seed)
+    levels, final = _prop_inputs(prop_runner, seed)
     pc, pp = PROP_FIELD_CFGS[0], prop_runner.scene.prop_params[0]
     x01 = ((levels[0]["pts"].reshape(-1, 3) - pc.aabb_min)
            / (pc.aabb_max - pc.aabb_min)).contiguous()
@@ -1413,6 +1435,17 @@ def compare_mlp_kernels(runner, hash_runner, prop_runner, seed: int) -> dict:
         feats = hash_encode(pp["table"], x01, pc.grid)
     measure("prop_points", PROP_HEAD, pp["mlp"]["w"], feats,
             ((x01 > 0.0) & (x01 < 1.0)).all(dim=-1))
+    # the prop app step's colour head: the final field's 8192 x 64 points
+    # at stride 1, as render_rays_prop queries them
+    ps = prop_runner.scene
+    fc = ps.field_cfg
+    nx, ny, nz, sel = normalize_coords(fc, *final["xyz"])
+    with torch.no_grad():
+        feats = fc.grid.encode_ray(ps.params["app"]["table"], nx.contiguous(),
+                                   ny.contiguous(), nz.contiguous(),
+                                   (1,) * fc.grid.n_levels)
+    measure("prop_app", APP_HEAD, ps.params["app"]["mlp"]["w"],
+            feats.reshape(-1, feats.shape[-1]), sel.reshape(-1).contiguous())
     return {name: {**r["scene"], **{t: v for t, v in r.items()
                                     if t != "scene"}}
             for name, r in res.items()}
@@ -3468,11 +3501,14 @@ def run(seed: int):
     # the MLP kernels beside the PyTorch route they replace
     for name in MLP_KERNELS:
         for tag in (None, "geo_hash", "app_windows", "app_hash",
-                    "prop_points"):
+                    "prop_points", "prop_app"):
             r = results[name] if tag is None else results[name][tag]
             log(f"{name}[{tag or 'scene'}] {r['head']} {r['shape']}: "
                 f"{r['ms']:.5f} ms (PyTorch route {r['pytorch_route_ms']:.5f}"
-                f"), bound {r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}")
+                f"), bound {r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, "
+                f"build {r['build']}"
+                + (f", reduce {r['reduce_ms']:.5f} ms" if "reduce_ms" in r
+                   else ""))
     kernels = []
     for name in REPLACES:
         r = results[name]
@@ -3506,9 +3542,10 @@ def run(seed: int):
             "replaces": REPLACES[name], "path": path, "launches": counted,
             "max_abs_err": top["max_abs_err"],
             **{k: top[k] for k in ("head", "max_ulps", "rerun_equal",
-                                   "pytorch_route_ms", "last_layer_rel_f64",
-                                   "over_one_ulp_entries",
-                                   "weight_grads_max_ulps_from_f64",
+                                   "pytorch_route_ms", "past_one_ulp",
+                                   "last_rel", "tie_free_share",
+                                   "tie_free", "last_rel_to_exact_hidden",
+                                   "controls", "build", "reduce_ms",
                                    "tie_moved_share", "fixed_point_route_ms",
                                    "max_rel_err", "loose_share",
                                    "rel_norm_err", "rerun_rel_norm",
@@ -3534,7 +3571,7 @@ def run(seed: int):
             **{k: r[k] for k in ("pinned", "readback", "bake", "level1",
                                  "final", "prop_final", "prop_points",
                                  "vis_core", "views", "geo_hash",
-                                 "app_windows", "app_hash")
+                                 "app_windows", "app_hash", "prop_app")
                if k in r}})
     return {"gather": gather, "train": train, "serve": serve,
             "anchor": anchor, "hash": hashp, "sphere": sphere, "prop": prop,

@@ -144,6 +144,38 @@ def ngp_head_plain(ws: list, x: torch.Tensor, sel: torch.Tensor,
     return head_epilogue(raw, sel, head), raw
 
 
+def ngp_head_bwd_terms(ws: list, x: torch.Tensor, sel: torch.Tensor,
+                       raw: torch.Tensor, g: torch.Tensor, head: NGPHead,
+                       need_dx: bool = True) -> tuple:
+    """The plain backward's terms: (each layer's input [M, din or 64],
+    rounded where the forward rounds; each hidden layer's pre-activation
+    cotangent [M, 64], masked by its ReLU and rounded where both packages'
+    autodiff rounds; the raw outputs' cotangent [M, C]; the input's
+    cotangent [M, din] before its rounding, or None). The hidden layers are
+    recomputed from x."""
+    rnd = _bf16 if head.bf16 else (lambda t: t)
+    h = rnd(x)
+    acts, pres = [h], []
+    for w in ws[:-1]:
+        pre = h @ rnd(w)
+        pres.append(pre)
+        h = rnd(torch.relu(pre))
+        acts.append(h)
+    d = head_epilogue_grad(raw, sel, g, head).T            # [M, C]
+    w_last = ws[-1]
+    # the channels' cotangents of the last hidden layer, summed in channel
+    # order
+    d_h = d[:, :1] * w_last[:, 0]
+    for c in range(1, w_last.shape[1]):
+        d_h = d_h + d[:, c:c + 1] * w_last[:, c]
+    d_pres = [None] * len(pres)
+    for i in reversed(range(len(pres))):
+        d_pres[i] = torch.where(pres[i] > 0, rnd(d_h), torch.zeros_like(d_h))
+        if i or need_dx:
+            d_h = d_pres[i] @ rnd(ws[i]).T
+    return acts, d_pres, d, (d_h if need_dx else None)
+
+
 def ngp_head_bwd_plain(ws: list, x: torch.Tensor, sel: torch.Tensor,
                        raw: torch.Tensor, g: torch.Tensor, head: NGPHead,
                        need_dx: bool = True) -> tuple:
@@ -155,28 +187,185 @@ def ngp_head_bwd_plain(ws: list, x: torch.Tensor, sel: torch.Tensor,
     gradients are bf16-valued, each rounded once after its float32 sum;
     the last layer's gradient is float32."""
     rnd = _bf16 if head.bf16 else (lambda t: t)
+    acts, d_pres, d, d_x = ngp_head_bwd_terms(ws, x, sel, raw, g, head,
+                                              need_dx)
+    grads = [rnd(a.T @ dp) for a, dp in zip(acts, d_pres)]
+    grads.append(acts[-1].T @ d)
+    return (rnd(d_x) if need_dx else None), grads
+
+
+def bf16_grad_sums_f64(ws: list, x: torch.Tensor, sel: torch.Tensor,
+                       raw: torch.Tensor, g: torch.Tensor,
+                       head: NGPHead) -> list:
+    """A bf16 head's rounded gradients [dx [M, din], dW0, (dW1)] from the
+    plain backward's float32 terms (its bf16 hidden values and bf16
+    cotangents, each product exact in float32), summed in float64: the
+    yardstick for two float32 sums of the same terms in other orders.
+    Where the terms cancel, a float32 sum of the 131,072 terms of the
+    colour head's step can land several bf16 ulps off it, and two float32
+    sums in other orders more than one ulp apart."""
+    acts, d_pres, _, _ = ngp_head_bwd_terms(ws, x, sel, raw, g, head,
+                                            need_dx=False)
+    pairs = [(a.double(), d.double()) for a, d in zip(acts, d_pres)]
+    return ([pairs[0][1] @ _bf16(ws[0]).double().T]
+            + [a.T @ d for a, d in pairs])
+
+
+# How far two float32 sums of the same k <= 64 bf16 x bf16 products (each
+# exact in float32) may lie apart, relative to the sum of the terms'
+# magnitudes: any order of the plain version's sums lies within (k - 1)
+# 2^-24 <= 2^-18 of the exact sum; the tensor cores' k16 sums, their 16
+# products aligned to the largest and truncated (each by less than 2^-23
+# of the largest), and the rounded adds of up to 4 of them, within 1.25
+# 2^-19; together 1.63 2^-18, under this.
+SUM_ORDER_REL = 2.0 ** -17
+# How far two float32 evaluations of exp or of the sigmoid (another
+# library's) may lie apart, relative.
+EPILOGUE_REL = 2.0 ** -20
+
+
+def bf16_ulp_f64(v: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp at |v| (float64): 2^(e - 7) for |v| in [2^e, 2^(e+1)),
+    2^-133 (bf16's smallest subnormal) at 0 and below 2^-126."""
+    _, e = torch.frexp(v)
+    e = torch.where(v == 0, torch.full_like(e, -125), e)
+    return torch.ldexp(torch.ones_like(v), (e - 8).clamp_min(-133))
+
+
+def bf16_round_f64(v: torch.Tensor) -> torch.Tensor:
+    """Float64 values rounded to bf16 (to nearest, ties to even) exactly,
+    with no float32 step between."""
+    ulp = bf16_ulp_f64(v)
+    return torch.round(v / ulp) * ulp
+
+
+def _bf16_ends(v: torch.Tensor, reach: torch.Tensor) -> tuple:
+    """The bf16 roundings of the ends of [v - reach, v + reach] (float64):
+    rounding is monotone, so every value there rounds between them."""
+    v = v.double()
+    return bf16_round_f64(v - reach), bf16_round_f64(v + reach)
+
+
+def _epilogue_reach(raw: torch.Tensor, sel: torch.Tensor, g: torch.Tensor,
+                    head: NGPHead) -> torch.Tensor:
+    """How far another float32 evaluation of ``head_epilogue_grad`` may lie
+    from this one, [C, M] float64: exp within EPILOGUE_REL relative; the
+    sigmoid's y within EPILOGUE_REL y, so y (1 - y) within EPILOGUE_REL y
+    plus its own rounding."""
+    if head.epilogue == "sigmoid":
+        y = torch.sigmoid(raw).double()
+        return ((g.double() * sel.double()).abs()
+                * (EPILOGUE_REL * y + 2.0 ** -22 * y * (1.0 - y)))
+    return EPILOGUE_REL * head_epilogue_grad(raw, sel, g, head).double().abs()
+
+
+def bf16_head_reach(ws: list, x: torch.Tensor, sel: torch.Tensor,
+                    raw: torch.Tensor, g: torch.Tensor, head: NGPHead) -> dict:
+    """How far a bf16 head's backward with its float32 sums in another order
+    may lie from ``ngp_head_bwd_plain``'s, carried through the layers from
+    the plain version's own values: every sum of products within
+    SUM_ORDER_REL of the sum of its terms' magnitudes (plus what the moves
+    of its inputs upstream carry), the epilogue's derivative within
+    ``_epilogue_reach``. A hidden output or cotangent moves only as far as
+    the bf16 roundings of its reach's ends lie apart (a tie rounded the
+    other way), a ReLU decides the other way only where its plain
+    pre-activation lies within its reach of zero, and then the unit's
+    cotangent moves by at most its own magnitude. Returns {"dx": the bound
+    on |dx - plain dx| [M, din] (the span of dx's rounding), "terms": for
+    each bf16 weight gradient, the bound on how far the exact sum of the
+    other version's terms lies from that of the plain version's, "last":
+    the same for the last layer [64, C], "tie_free": the points [M] (bool)
+    whose every hidden output and cotangent rounds as the plain version's
+    and whose every ReLU decides as its, so that only dx's own rounding
+    and the sums' order remain}. All float64."""
+    rnd, f64 = _bf16, torch.float64
     h = rnd(x)
-    acts, pres = [h], []
+    acts, moves, pres, flips = [h], [torch.zeros_like(h, dtype=f64)], [], []
     for w in ws[:-1]:
+        wa = rnd(w).abs().double()
         pre = h @ rnd(w)
+        reach = (SUM_ORDER_REL * ((h.abs().double() + moves[-1]) @ wa)
+                 + moves[-1] @ wa)
+        p64 = pre.double()
+        lo, hi = (bf16_round_f64(torch.relu(p64 - reach)),
+                  bf16_round_f64(torch.relu(p64 + reach)))
         pres.append(pre)
+        flips.append((p64 - reach <= 0) & (p64 + reach > 0))
         h = rnd(torch.relu(pre))
         acts.append(h)
-    d = head_epilogue_grad(raw, sel, g, head).T            # [M, C]
+        moves.append(hi - lo)
+    d = head_epilogue_grad(raw, sel, g, head).T
+    d_move = _epilogue_reach(raw, sel, g, head).T
     w_last = ws[-1]
-    grads = [None] * len(ws)
-    grads[-1] = acts[-1].T @ d
-    # the channels' cotangents of the last hidden layer, summed in channel
-    # order
+    wla = w_last.abs().double()
     d_h = d[:, :1] * w_last[:, 0]
     for c in range(1, w_last.shape[1]):
         d_h = d_h + d[:, c:c + 1] * w_last[:, c]
-    for i in reversed(range(len(ws) - 1)):
-        d_pre = torch.where(pres[i] > 0, rnd(d_h), torch.zeros_like(d_h))
-        grads[i] = rnd(acts[i].T @ d_pre)
-        if i or need_dx:
-            d_h = d_pre @ rnd(ws[i]).T
-    return (rnd(d_h) if need_dx else None), grads
+    # the channel sum's own roundings, where an input moved
+    reach = (d_move @ wla.T * (1.0 + 2.0 ** -20)
+             + 2.0 ** -21 * (d.abs().double() @ wla.T)
+             * (d_move > 0).any(dim=1, keepdim=True))
+    terms = [None] * len(pres)
+    tie_free = torch.ones_like(sel)
+    for i in reversed(range(len(pres))):
+        lo, hi = _bf16_ends(d_h, reach)
+        on = pres[i] > 0
+        d_pre = torch.where(on, rnd(d_h), torch.zeros_like(d_h)).double()
+        dd = torch.where(flips[i], torch.maximum(lo.abs(), hi.abs()),
+                         torch.where(on, hi - lo, torch.zeros_like(lo)))
+        terms[i] = (moves[i].T @ (d_pre.abs() + dd)
+                    + acts[i].abs().double().T @ dd)
+        tie_free &= (dd == 0).all(dim=1) & (moves[i + 1] == 0).all(dim=1)
+        wa = rnd(ws[i]).abs().double()
+        reach = SUM_ORDER_REL * ((d_pre.abs() + dd) @ wa.T) + dd @ wa.T
+        d_h = d_pre.float() @ rnd(ws[i]).T
+    lo, hi = _bf16_ends(d_h, reach)
+    d64 = d.abs().double()
+    last = moves[-1].T @ (d64 + d_move) + acts[-1].abs().double().T @ d_move
+    return {"dx": hi - lo, "terms": terms, "last": last,
+            "tie_free": tie_free}
+
+
+def bf16_grads_within(got: list, want: list, sums: list, reach: dict,
+                      last_rel: float = 1e-5) -> dict:
+    """A bf16 head's backward ``got`` [dx, dW0, (dW1), dWL] against the
+    plain version's ``want`` on the same inputs, with the float64 sums of
+    the plain version's terms ``sums`` (``bf16_grad_sums_f64``) and its
+    ``bf16_head_reach``: dx, each entry within one bf16 ulp or within the
+    span its reach gives; a bf16 weight gradient, each entry within one
+    bf16 ulp, or no farther from its float64 sum than the plain version is
+    plus one ulp plus how far the other version's terms' exact sum may lie
+    (their reach); the last layer within ``last_rel`` relative norm plus
+    its terms' reach. Where no tie reaches (``reach["tie_free"]`` covers
+    every point with a cotangent), the terms' reach is 0 and these are the
+    plain rules: one ulp, the float64 sum, 1e-5. Returns {"ok": each
+    check's verdict, "max_ulps": the largest move in bf16 ulps, "past_ulp":
+    entries past one ulp, "past_reach": entries past their bound}."""
+    ok, max_ulps, past_ulp, past_reach = {}, {}, {}, {}
+    names = ["dx"] + [f"dW{i}" for i in range(len(got) - 2)]
+    for i, name in enumerate(names):
+        a, b = got[i].double(), want[i].double()
+        ulp = bf16_ulp_f64(torch.maximum(a.abs(), b.abs()))
+        off = (a - b).abs()
+        if i == 0:
+            bad = off > torch.maximum(ulp, reach["dx"])
+        else:
+            e = sums[i]
+            ulp = bf16_ulp_f64(torch.maximum(ulp, e.abs()))
+            bad = (off > ulp) & ((a - e).abs() > (b - e).abs() + ulp
+                                 + reach["terms"][i - 1])
+        ok[name] = bool(torch.equal(a, a.to(torch.bfloat16).double())
+                        and not bad.any())
+        max_ulps[name] = (off / ulp).max().item() if off.numel() else 0.0
+        past_ulp[name] = int((off > ulp).sum())
+        past_reach[name] = int(bad.sum())
+    a, b = got[-1].double(), want[-1].double()
+    ok["last"] = bool((a - b).norm() <= last_rel * b.norm()
+                      + reach["last"].norm())
+    return {"ok": ok, "max_ulps": max_ulps, "past_ulp": past_ulp,
+            "past_reach": past_reach,
+            "last_rel": ((a - b).norm() / b.norm()).item() if b.norm() > 0
+            else a.abs().max().item()}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

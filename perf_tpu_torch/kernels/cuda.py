@@ -11,7 +11,9 @@ rebuilt and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; ``CudaKernel.launch`` raises on a
-non-zero return and counts the launch.
+non-zero return and counts the launch. A library's ``-Xptxas -v`` log is
+kept beside it (``.log``), so a library built by an earlier process still
+has its log (``CudaKernel.build_log``).
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._fn = None
+        self._lib = None
 
     @property
     def source_path(self) -> Path:
@@ -100,6 +103,7 @@ class CudaKernel:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        proc.out_path.with_suffix(".log").write_text(log)
         os.replace(proc.tmp_path, proc.out_path)
         return log
 
@@ -113,11 +117,18 @@ class CudaKernel:
                     if proc is not None:
                         self.build_log = self.finish_build(proc)
                     lib = _LIBS[out] = ctypes.CDLL(str(out))
+                if not self.build_log and out.with_suffix(".log").exists():
+                    self.build_log = out.with_suffix(".log").read_text()
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = self.argtypes + [P]
                 fn.restype = I32
-                self._fn = fn
+                self._fn, self._lib = fn, lib
         return self._fn
+
+    def library(self) -> ctypes.CDLL:
+        """The loaded library of this kernel's source (built at first use)."""
+        self._load()
+        return self._lib
 
     def launch(self, *args):
         """Launch on the current stream; raise on a CUDA error."""

@@ -14,6 +14,7 @@ shapes, dtypes and devices and raises on what the kernel does not take.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -23,10 +24,11 @@ from ..fields.mlp import (APP_HEAD, GEO_HEAD, PROP_HEAD, NGPHead,
                           ngp_head_bwd_plain, ngp_head_plain)
 
 HIDDEN = 64
-# the kernels' head index and widest input (csrc/ngp_mlp.cu)
-KERNEL_HEADS = {GEO_HEAD: (0, 32), APP_HEAD: (1, 32), PROP_HEAD: (2, 16)}
-BWD_THREADS = 128          # the backward's tile of points a block
-BWD_BLOCKS_PER_SM = 2      # the backward's grid: at most this many a SM
+# the kernels' head index, widest input and the backward's tile of points a
+# block (csrc/ngp_mlp.cu: the bf16 heads' tensor-core tiles of 16 points a
+# warp, the float32 proposal head's point a thread)
+KERNEL_HEADS = {GEO_HEAD: (0, 32, 64), APP_HEAD: (1, 32, 64),
+                PROP_HEAD: (2, 16, 128)}
 
 _FWD = cuda.register(cuda.CudaKernel(
     "ngp_mlp", "ngp_mlp.cu", "ngp_mlp_fwd_launch",
@@ -43,7 +45,7 @@ def _check_args(ws, x: torch.Tensor, sel: torch.Tensor,
     """(kernel head index, din) after checking the kernel takes them."""
     if head not in KERNEL_HEADS:
         raise ValueError(f"ngp_mlp kernel: no instance for {head}")
-    index, max_in = KERNEL_HEADS[head]
+    index, max_in, _ = KERNEL_HEADS[head]
     dev = x.device
     cuda.check(x, "x", torch.float32, (None, None))
     m, din = x.shape
@@ -81,9 +83,36 @@ def ngp_mlp_fwd_cuda(ws, x: torch.Tensor, sel: torch.Tensor, head: NGPHead,
     return out, raw
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+@functools.lru_cache(maxsize=1)
+def _occupancy_fn():
+    fn = _FWD.library().ngp_mlp_occupancy
+    fn.argtypes, fn.restype = [cuda.I32, cuda.I32, cuda.P], cuda.I32
+    return fn
+
+
+def _occupancy(head: NGPHead, backward: bool) -> tuple:
+    """(blocks a SM, dynamic shared memory a block) of the head's kernel on
+    the current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    occ = (ctypes.c_int * 2)()
+    err = _occupancy_fn()(KERNEL_HEADS[head][0], int(backward), occ)
+    if err != 0 or occ[0] < 1:
+        raise RuntimeError(f"ngp_mlp_occupancy ({head.name}): cudaError "
+                           f"{err}, {occ[0]} blocks a SM")
+    return occ[0], occ[1]
+
+
+@functools.lru_cache(maxsize=16)
+def _bwd_grid_cap(head: NGPHead, index: int) -> int:
+    with torch.cuda.device(index):
+        per_sm = _occupancy(head, backward=True)[0]
+    return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_blocks(head: NGPHead, m: int, device: torch.device) -> int:
+    """The backward's grid at m points: a block a tile of points, at most
+    as many blocks as the card holds at once."""
+    tiles = -(-m // KERNEL_HEADS[head][2])
+    return max(1, min(tiles, _bwd_grid_cap(head, device.index or 0)))
 
 
 def ngp_mlp_bwd_cuda(ws, x: torch.Tensor, sel: torch.Tensor,
@@ -99,9 +128,7 @@ def ngp_mlp_bwd_cuda(ws, x: torch.Tensor, sel: torch.Tensor,
         cuda.check(t, name, torch.float32, (head.channels, m), x.device)
     sizes = ([din * HIDDEN] + [HIDDEN * HIDDEN] * (head.hidden - 1)
              + [HIDDEN * head.channels])
-    tiles = -(-m // BWD_THREADS)
-    blocks = max(1, min(tiles, BWD_BLOCKS_PER_SM
-                        * _sm_count(x.device.index or 0)))
+    blocks = bwd_blocks(head, m, x.device)
     part = torch.empty((blocks, sum(sizes)), dtype=torch.float32,
                        device=x.device)
     grad = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)

@@ -73,7 +73,9 @@ from perf_tpu_torch.utils import (cube_room_occ_grid, random_field_params,
 from perf_tpu_torch.data import Dataset
 from perf_tpu_torch.fields import SphereFieldConfig
 from perf_tpu_torch.fields.mlp import (APP_HEAD, GEO_HEAD, PROP_HEAD, NGPHead,
-                                       ngp_head_bwd_plain, ngp_head_plain)
+                                       bf16_grad_sums_f64, bf16_grads_within,
+                                       bf16_head_reach, ngp_head_bwd_plain,
+                                       ngp_head_plain)
 from perf_tpu_torch.kernels.ngp_mlp import (ngp_head, ngp_mlp_bwd_cuda,
                                             ngp_mlp_fwd_cuda)
 from perf_tpu_torch.priors import (FakeCubeRoomDepthPredictor,
@@ -187,16 +189,17 @@ def bilinear_case(c: int, padding: str, seed: int):
 MLP_HEADS = (GEO_HEAD, APP_HEAD, PROP_HEAD)
 
 
-def mlp_case(head: NGPHead, seed: int, m: int = 301):
+def mlp_case(head: NGPHead, seed: int, m: int = 301, din: int | None = None):
     """(ws, x [m, din], sel [m], g [C, m]) as numpy float32 / bool: He-init
-    weights, inputs N(0, 0.5), sel 80% true, cotangents N(0, 1). With m >=
+    weights, inputs N(0, 0.5), sel 80% true, cotangents N(0, 1); din 32 (10
+    for the proposal head) unless given. With m >=
     8: row 0 is zero (every ReLU at 0) and the three rows with the largest
     first-channel raw output are scaled (the heads are bias-free ReLU
     networks, so raw scales with the input) to reach about 20 and 100
     inside the select and 100 outside it (the clamps at 15 and 80), the
     row with the smallest to about -30."""
     rng = np.random.default_rng(seed)
-    din = 10 if head is PROP_HEAD else 32
+    din = din or (10 if head is PROP_HEAD else 32)
     dims = [din] + [64] * head.hidden + [head.channels]
     ws = [(rng.standard_normal((a, b)) * np.sqrt(2.0 / a)).astype(np.float32)
           for a, b in zip(dims[:-1], dims[1:])]
@@ -438,6 +441,76 @@ def test_ngp_mlp_wrappers_refuse_cpu_tensors_and_other_heads():
     with pytest.raises(ValueError, match="no instance"):
         ngp_mlp_fwd_cuda(ws, x, sel, deep, save_raw=False)
     assert cuda.counts()["ngp_mlp"] == cuda.counts()["ngp_mlp_bwd"] == 0
+
+
+# an nvcc -Xptxas -v log and a cuobjdump -sass listing of the kind the
+# card's toolkit prints, for the parsers in tools/mlp_probe.py
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114mlp_bwd_kernelILi1EEEvPKfPKhS3_S3_xiS3_S3_S3_PfS6_i' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114mlp_bwd_kernelILi1EEEvPKfPKhS3_S3_xiS3_S3_S3_PfS6_i
+    24 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 222 registers, used 1 barriers, 0 bytes smem, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114mlp_fwd_kernelILi0EEEvPKfPKhxiS3_S3_S3_PfS6_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114mlp_fwd_kernelILi0EEEvPKfPKhxiS3_S3_S3_PfS6_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 82 registers, used 1 barriers, 5008 bytes smem, 440 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118mlp_f32_fwd_kernelEPKfPKhxiS2_S2_PfS5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118mlp_f32_fwd_kernelEPKfPKhxiS2_S2_PfS5_
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 111 registers, 4352 bytes smem, 424 bytes cmem[0]
+"""
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_114mlp_fwd_kernelILi0EEEvPKfPKhxiS3_S3_S3_PfS6_
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+        /*0350*/                   HMMA.16816.F32.BF16 R24, R4, R20, RZ ; /* 0x000000140418723c */
+        /*0360*/              @!P0 HMMA.16816.F32.BF16 R28, R4, R22, R28 ;
+        /*0370*/                   FFMA R1, R2, R3, R4 ;
+\t\tFunction : _ZN12_GLOBAL__N_118mlp_f32_fwd_kernelEPKfPKhxiS2_S2_PfS5_
+        /*0010*/                   FFMA R1, R2, R3, R4 ;
+        /*0020*/                   STS.128 [R2], R4 ;  // HMMA in a comment
+"""
+
+
+def test_build_log_and_sass_parsers():
+    from perf_tpu_torch.tools.mlp_probe import ptxas_usage, sass_counts
+    usage = ptxas_usage(PTXAS_LOG)
+    assert len(usage) == 3
+    bwd = usage["_ZN12_GLOBAL__N_114mlp_bwd_kernelILi1EEEvPKfPKhS3_S3_xiS3_S3_"
+                "S3_PfS6_i"]
+    assert bwd == {"stack_bytes": 24, "spill_stores": 0, "spill_loads": 0,
+                   "registers": 222, "smem_bytes": 0}
+    f32 = usage["_ZN12_GLOBAL__N_118mlp_f32_fwd_kernelEPKfPKhxiS2_S2_PfS5_"]
+    assert (f32["registers"], f32["smem_bytes"], f32["spill_stores"]) == (
+        111, 4352, 4)
+    counts = sass_counts(SASS, "HMMA")
+    assert counts == {
+        "_ZN12_GLOBAL__N_114mlp_fwd_kernelILi0EEEvPKfPKhxiS3_S3_S3_PfS6_": 2,
+        "_ZN12_GLOBAL__N_118mlp_f32_fwd_kernelEPKfPKhxiS2_S2_PfS5_": 0}
+    assert sass_counts(SASS, "FFMA") == dict.fromkeys(counts, 1)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_ngp_mlp_kernel_symbols_name_one_instance_each(backward):
+    """Each head's forward or backward kernel is told apart by a part of
+    its mangled name that no other instance's holds."""
+    from perf_tpu_torch.kernels.ngp_mlp import KERNEL_HEADS
+    from perf_tpu_torch.tools.mlp_probe import kernel_symbol
+    names = {"_ZN12_GLOBAL__N_114mlp_fwd_kernelILi0EEEvPKf",
+             "_ZN12_GLOBAL__N_114mlp_fwd_kernelILi1EEEvPKf",
+             "_ZN12_GLOBAL__N_118mlp_f32_fwd_kernelEPKf",
+             "_ZN12_GLOBAL__N_114mlp_bwd_kernelILi0EEEvPKf",
+             "_ZN12_GLOBAL__N_114mlp_bwd_kernelILi1EEEvPKf",
+             "_ZN12_GLOBAL__N_118mlp_f32_bwd_kernelEPKf",
+             "_ZN12_GLOBAL__N_122mlp_grad_reduce_kernelEPKf"}
+    picked = set()
+    for head in KERNEL_HEADS:
+        found = [n for n in names if kernel_symbol(head, backward) in n]
+        assert len(found) == 1
+        picked.add(found[0])
+    assert len(picked) == len(KERNEL_HEADS)
 
 
 def test_non_wild_entry_points_never_fall_back_to_the_cpu(monkeypatch):
@@ -1466,15 +1539,21 @@ def test_prop_loss_kernels_match_plain(gpu, n, m, k):
 
 # -- the NGP MLP (K2, csrc/ngp_mlp.cu) --------------------------------------------
 
-# m: no multiple of the backward's 128-point tile; a single point; every
-# point outside the select; enough tiles that each block of the backward's
-# grid takes two or three
-MLP_SIZES = {"tail": 301, "one": 1, "sel_false": 257, "tiles": 87_077}
+# m: no multiple of the backward's tile (64 points in the bf16 heads, 128
+# in the proposal head); a single point; every point outside the select;
+# enough tiles that each block of the backward's grid takes two or three;
+# one 16-row fragment less one and plus one; a 64-point tile plus one; many
+# tiles over the grid with a remainder; an input narrower than the widest
+# (the bf16 heads' W0 padded to 32 rows, x read without 16-byte rows)
+MLP_SIZES = {"tail": 301, "one": 1, "sel_false": 257, "tiles": 87_077,
+             "frag_less": 15, "frag_more": 17, "tile_more": 65,
+             "grid_rest": 131_077, "narrow": 301}
 
 
 def _mlp_on(dev, head: NGPHead, case: str):
+    din = (24 if head.bf16 else 7) if case == "narrow" else None
     ws, x, sel, g = mlp_case(head, 70 + list(MLP_SIZES).index(case),
-                             MLP_SIZES[case])
+                             MLP_SIZES[case], din)
     if case == "sel_false":
         sel[:] = False
     return ([torch.from_numpy(w).to(dev) for w in ws],
@@ -1490,10 +1569,19 @@ def test_ngp_mlp_kernels_match_plain(gpu, head, case):
     against the plain versions on the card: the forward's float32 sums run
     in another order than cuBLAS's, so a hidden unit on a bf16 tie may round
     apart (at most 0.1% of outputs off by > 1e-4 relative); the backward on
-    the kernel's own raw outputs: dx, dW0, dW1 bf16-valued within one bf16
-    ulp, the last layer within 1e-5 relative norm (the proposal head's
-    float32 gradients all within 1e-5); a second backward bitwise the
-    first."""
+    the kernel's own raw outputs, for the bf16 heads by ``fields/mlp.py``
+    ``bf16_grads_within``: dx, dW0, dW1 bf16-valued; dx within one bf16
+    ulp, or within the span that the moves of the sums' order upstream can
+    carry to it (``bf16_head_reach``: a hidden output or cotangent rounded
+    the other way on a tie, a ReLU decided the other way within its
+    reach of zero), and five of its nonzero rows zeroed fail that; an
+    entry of dW0 or dW1 past one ulp no farther from the float64 sum of
+    the plain version's terms (``bf16_grad_sums_f64``) than the plain
+    version is, plus one ulp and its terms' reach; the last layer within
+    1e-5 relative norm plus its terms' reach; and on the points no tie
+    reaches (the cotangent zero elsewhere) the same with no reach: one
+    ulp, the float64 sums, 1e-5. The proposal head's float32 gradients all
+    within 1e-5; a second backward bitwise the first."""
     ws, x, sel, g = _mlp_on(gpu[0], head, case)
     before = cuda.counts()
     with torch.no_grad():
@@ -1512,20 +1600,34 @@ def test_ngp_mlp_kernels_match_plain(gpu, head, case):
     if case == "sel_false":
         assert (out == 0).all()
 
-    grads = torch.autograd.grad(out, [lx, *lws], g)
+    grads = list(torch.autograd.grad(out, [lx, *lws], g))
     after = cuda.counts()
     assert after["ngp_mlp_bwd"] == mid["ngp_mlp_bwd"] + 1
     again = torch.autograd.grad(ngp_head(lws, lx, sel, head), [lx, *lws], g)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     _, raw = ngp_mlp_fwd_cuda(ws, x, sel, head, save_raw=True)
     rdx, rws = ngp_head_bwd_plain(ws, x, sel, raw, g, head)
-    torch.cuda.synchronize()
-    got = [t.cpu().numpy() for t in grads]
-    want = [t.cpu().numpy() for t in (rdx, *rws)]
-    n_round = len(got) - 1 if head.bf16 else 0
-    for a, b in zip(got[:n_round], want[:n_round]):
-        assert is_bf16_valued(a)
-        assert (bf16_ulps_apart(a, b) <= 1.0).all()
-    for a, b in zip(got[n_round:], want[n_round:]):
-        nb = np.linalg.norm(b)
-        assert (np.linalg.norm(a - b) <= 1e-5 * nb) if nb > 0 else (a == 0).all()
+    want = [rdx, *rws]
+    if not head.bf16:
+        for a, b in zip(grads, want):
+            nb = b.norm()
+            assert (a - b).norm() <= 1e-5 * nb if nb > 0 else (a == 0).all()
+        return
+    reach = bf16_head_reach(ws, x, sel, raw, g, head)
+    sums = bf16_grad_sums_f64(ws, x, sel, raw, g, head)
+    full = bf16_grads_within(grads, want, sums, reach)
+    assert all(full["ok"].values()), full
+    rows = torch.nonzero(rdx.abs().sum(dim=1) > 0).flatten()[-5:]
+    if rows.numel():
+        bad = [t.clone() for t in grads]
+        bad[0][rows] = 0.0
+        assert not bf16_grads_within(bad, want, sums, reach)["ok"]["dx"]
+    g2 = g * reach["tie_free"]
+    dx2, dws2 = ngp_mlp_bwd_cuda(ws, x, sel, raw, g2, head)
+    rdx2, rws2 = ngp_head_bwd_plain(ws, x, sel, raw, g2, head)
+    reach2 = bf16_head_reach(ws, x, sel, raw, g2, head)
+    assert all(bool((t == 0).all()) for t in reach2["terms"])
+    sums2 = bf16_grad_sums_f64(ws, x, sel, raw, g2, head)
+    free = bf16_grads_within([dx2, *dws2], [rdx2, *rws2], sums2, reach2)
+    assert all(free["ok"].values()), free
+

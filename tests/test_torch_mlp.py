@@ -25,11 +25,15 @@ from perf_tpu.fields.mlp import (ngp_mlp_apply as j_apply,
 from perf_tpu.fields.ngp import trunc_exp as j_trunc_exp
 
 from perf_tpu_torch.fields.mlp import (APP_HEAD, GEO_HEAD, PROP_HEAD,
-                                       head_epilogue, ngp_head_bwd_plain,
-                                       ngp_head_plain)
+                                       bf16_grad_sums_f64, bf16_grads_within,
+                                       bf16_head_reach, bf16_round_f64,
+                                       bf16_ulp_f64, head_epilogue,
+                                       head_epilogue_grad, ngp_head_bwd_plain,
+                                       ngp_head_bwd_terms, ngp_head_plain)
 from perf_tpu_torch.kernels.ngp_mlp import NGPMlp, ngp_head
 
-from test_torch_kernels import bf16_ulps_apart, is_bf16_valued, mlp_case
+from test_torch_kernels import (bf16_ulp, bf16_ulps_apart, is_bf16_valued,
+                                mlp_case)
 
 HEADS = (GEO_HEAD, APP_HEAD, PROP_HEAD)
 
@@ -180,3 +184,161 @@ def test_ngp_head_refuses_other_devices():
     tws, tx, tsel, _ = torch_case(ws, x, sel)
     with pytest.raises(ValueError, match="unsupported device"):
         ngp_head(tws, tx.to("meta"), tsel.to("meta"), GEO_HEAD)
+
+
+@pytest.mark.parametrize("head", (GEO_HEAD, APP_HEAD), ids=lambda h: h.name)
+def test_float64_yardstick_sums_the_plain_backwards_terms(head):
+    """``bf16_grad_sums_f64`` gives dx, dW0 (and dW1) as the float64 sums
+    of the plain backward's float32 terms, as numpy sums them (to 1e-12 of
+    the terms' magnitudes); every entry of the plain backward's dW0
+    / dW1 lies within one bf16 ulp of its float64 sum, or no farther from
+    it than ``jax.vjp``'s result is (both round one float32 sum of the same
+    terms)."""
+    ws, x, sel, g = mlp_case(head, 6)
+    tws, tx, tsel, tg = torch_case(ws, x, sel, g)
+    _, raw = ngp_head_plain(tws, tx, tsel, head)
+    acts, d_pres, _, _ = ngp_head_bwd_terms(tws, tx, tsel, raw, tg, head)
+    a64 = [a.numpy().astype(np.float64) for a in acts]
+    d64 = [d.numpy().astype(np.float64) for d in d_pres]
+    w0 = tws[0].to(torch.bfloat16).double().numpy()
+    want = [d64[0] @ w0.T] + [a.T @ d for a, d in zip(a64, d64)]
+    want_mag = ([np.abs(d64[0]) @ np.abs(w0).T]
+                + [np.abs(a).T @ np.abs(d) for a, d in zip(a64, d64)])
+    sums = bf16_grad_sums_f64(tws, tx, tsel, raw, tg, head)
+    assert len(sums) == head.hidden + 1
+    for got, ref, mag in zip(sums, want, want_mag):
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12 * mag.max())
+
+    _, dws = ngp_head_bwd_plain(tws, tx, tsel, raw, tg, head)
+    jsel = jnp.asarray(sel)
+    _, vjp = jax.vjp(lambda b: j_head(b, jnp.asarray(x), jsel, head),
+                     [jnp.asarray(w) for w in ws])
+    (jdws,) = vjp(jnp.asarray(g))
+    for p, j, e in zip(dws[:-1], jdws[:-1], sums[1:]):
+        p = p.numpy().astype(np.float64)
+        j = np.asarray(j, np.float64)
+        e = e.numpy()
+        within = np.abs(p - e) <= bf16_ulp(np.maximum(np.abs(p), np.abs(e)))
+        assert (within | (np.abs(p - e) <= np.abs(j - e))).all()
+
+
+def test_float64_bf16_rounding_and_ulp():
+    """``bf16_round_f64`` rounds float64 values to bf16 as torch rounds
+    their float32 values (to nearest, ties to even), and ``bf16_ulp_f64``
+    is the step to the next bf16 value (2^-133 at 0)."""
+    rng = np.random.default_rng(3)
+    v = (rng.standard_normal(20000)
+         * 10.0 ** rng.integers(-30, 30, 20000)).astype(np.float32)
+    v[:4] = [0.0, 1.0, -1.00390625, 1.001953125]        # 1 + 2^-9: a tie
+    t = torch.from_numpy(v).double()
+    r = bf16_round_f64(t)
+    assert torch.equal(r, torch.from_numpy(v).to(torch.bfloat16).double())
+    assert r[3].item() == 1.0
+    ulp = bf16_ulp_f64(r)
+    nxt = (r.abs() + ulp).float()
+    assert torch.equal(nxt.to(torch.bfloat16).float(), nxt)
+    assert (bf16_round_f64(r.abs() + 0.49 * ulp) == r.abs()).all()
+    assert bf16_ulp_f64(torch.zeros(1, dtype=torch.float64)).item() == 2.0 ** -133
+
+
+def another_sum_order(ws, x, sel, raw, g, head) -> list:
+    """The plain backward with every product's sum taken in float64 and
+    rounded to float32 once: another order of the same float32 sums, as
+    the kernels' tensor cores take one. [dx, dW0, (dW1), dWL]."""
+    def mm(a, b):
+        return (a.double() @ b.double()).float()
+    bf = lambda t: t.to(torch.bfloat16).float()
+    h = bf(x)
+    acts, pres = [h], []
+    for w in ws[:-1]:
+        pres.append(mm(h, bf(w)))
+        h = bf(torch.relu(pres[-1]))
+        acts.append(h)
+    d = head_epilogue_grad(raw, sel, g, head).T
+    d_h = d[:, :1] * ws[-1][:, 0]
+    for c in range(1, ws[-1].shape[1]):
+        d_h = d_h + d[:, c:c + 1] * ws[-1][:, c]
+    d_pres = [None] * len(pres)
+    for i in reversed(range(len(pres))):
+        d_pres[i] = torch.where(pres[i] > 0, bf(d_h), torch.zeros_like(d_h))
+        d_h = mm(d_pres[i], bf(ws[i]).T)
+    return ([bf(d_h)] + [bf(mm(a.T, dp)) for a, dp in zip(acts, d_pres)]
+            + [mm(acts[-1].T, d)])
+
+
+def heaviest_tile(ws, x, sel, raw, g, head) -> int:
+    """The 64-point tile whose terms of the last layer's gradient weigh
+    most (the sum over its points of |last hidden outputs| |d raw|)."""
+    acts, _, d, _ = ngp_head_bwd_terms(ws, x, sel, raw, g, head,
+                                       need_dx=False)
+    w = acts[-1].abs().sum(dim=1) * d.abs().sum(dim=1)
+    w = torch.nn.functional.pad(w, (0, -w.shape[0] % 64))
+    return int(w.view(-1, 64).sum(dim=1).argmax())
+
+
+@pytest.mark.parametrize("m", (301, 6000))
+@pytest.mark.parametrize("head", (GEO_HEAD, APP_HEAD), ids=lambda h: h.name)
+def test_reach_holds_another_sum_order_and_not_a_wrong_one(head, m):
+    """``bf16_grads_within`` with ``bf16_head_reach`` passes the plain
+    backward's float32 sums taken in another order (float64, rounded once)
+    on the full cotangent and, with no reach left, on the points no tie
+    reaches; it fails dx with five nonzero rows zeroed and, on those points,
+    a last layer with the heaviest 64-point tile of the cotangent
+    dropped."""
+    ws, x, sel, g = mlp_case(head, 11, m)
+    tws, tx, tsel, tg = torch_case(ws, x, sel, g)
+    _, raw = ngp_head_plain(tws, tx, tsel, head)
+
+    def judge(g_, got):
+        dx, dws = ngp_head_bwd_plain(tws, tx, tsel, raw, g_, head)
+        reach = bf16_head_reach(tws, tx, tsel, raw, g_, head)
+        sums = bf16_grad_sums_f64(tws, tx, tsel, raw, g_, head)
+        want = [dx, *dws]
+        return want, reach, sums, bf16_grads_within(got, want, sums, reach)
+
+    want, reach, sums, full = judge(
+        tg, another_sum_order(tws, tx, tsel, raw, tg, head))
+    assert all(full["ok"].values()), full
+    bad = another_sum_order(tws, tx, tsel, raw, tg, head)
+    rows = torch.nonzero(want[0].abs().sum(dim=1) > 0).flatten()[-5:]
+    bad[0][rows] = 0.0
+    assert not bf16_grads_within(bad, want, sums, reach)["ok"]["dx"]
+
+    tie_free = reach["tie_free"]
+    assert 0 < tie_free.float().mean().item() < 1
+    g2 = tg * tie_free
+    want2, reach2, sums2, free = judge(
+        g2, another_sum_order(tws, tx, tsel, raw, g2, head))
+    assert all(free["ok"].values()), free
+    assert all(bool((t == 0).all()) for t in reach2["terms"])
+    tile = heaviest_tile(tws, tx, tsel, raw, g2, head)
+    g3 = g2.clone()
+    g3[:, 64 * tile:64 * tile + 64] = 0.0
+    dropped = another_sum_order(tws, tx, tsel, raw, g3, head)
+    assert not bf16_grads_within(dropped, want2, sums2, reach2)["ok"]["last"]
+
+
+@pytest.mark.parametrize("head", (GEO_HEAD, APP_HEAD), ids=lambda h: h.name)
+def test_reach_bounds_the_moves_of_the_hidden_values(head):
+    """Every move ``bf16_head_reach`` carries is no smaller than the
+    difference between the plain backward's and the other sum order's
+    hidden values and cotangents, and a point it calls tie-free holds the
+    same hidden values and cotangents in both."""
+    ws, x, sel, g = mlp_case(head, 12, 3000)
+    tws, tx, tsel, tg = torch_case(ws, x, sel, g)
+    _, raw = ngp_head_plain(tws, tx, tsel, head)
+    acts, d_pres, _, _ = ngp_head_bwd_terms(tws, tx, tsel, raw, tg, head)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    h = bf(tx)
+    other = [h]
+    for w in tws[:-1]:
+        h = bf(torch.relu((h.double() @ bf(w).double()).float()))
+        other.append(h)
+    reach = bf16_head_reach(tws, tx, tsel, raw, tg, head)
+    free = reach["tie_free"]
+    for a, b in zip(acts[1:], other[1:]):
+        assert torch.equal(a[free], b[free])
+    assert reach["dx"].shape == tx.shape
+    assert (reach["dx"] >= 0).all() and (reach["last"] >= 0).all()
+    assert len(reach["terms"]) == len(d_pres)
