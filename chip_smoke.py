@@ -117,8 +117,9 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    or dW1 past one ulp no farther from its float64 sum than the plain
    version is, plus one ulp and its terms' reach, the last layer within
    1e-5 relative norm plus its terms' reach; on the points no tie
-   reaches, one ulp, the float64 sums and 1e-5 alone; three controls
-   that must fail; the proposal head's gradients within 1e-5; a second
+   reaches, one ulp and the float64 sums, the last layer by its norm
+   within 1e-5 plus the epilogue's reach and each block's partial row of
+   it within gamma_D of its float64 sums; three controls that must fail; the proposal head's gradients within 1e-5; a second
    launch bitwise), each timed beside its plain version and the
    PyTorch route it replaced (the plain forward under autograd and its
    autograd backward); the step profiles give the MLP's launches, bound
@@ -133,7 +134,15 @@ It imports ``perf_tpu_torch`` only (never JAX) and works through:
    covering every run the dedup forward equals K1's bitwise, and a pano's
    chunks at one K covering every run of the frame equal the standard
    composite bitwise. The dedup path's warm steps are also timed with
-   ``dedup_runs`` off on the same episode (``standard_steps``).
+   ``dedup_runs`` off on the same episode (``standard_steps``). The
+   training composite (K4, a group of lanes a ray) is held and timed at
+   the scene's geometry batch, the pinned shape and the two buckets of a
+   geometry step (the batch sorted by occupied windows and cut at the
+   episode's ``bucket_plan``), forward within 1e-5, backward within 1e-4
+   of its largest entry and bitwise on a second launch, each beside its
+   bound by the function's bytes and the bound that counted the design
+   before's ``trans`` and scratch (``was_bound_ms``); the step profiles
+   give its launches, shapes, bound and time a step (``composite``).
 
 Launch counts are zeroed just before each path (gather, train, serve,
 anchor, hash, sphere: its CLI run and its API run, prop, dedup) and read
@@ -299,7 +308,8 @@ FUSION_ITERS = 100           # of the fusion predictors' 1000
 WAS_MS = {"bilinear_sample": 0.1929, "brick_encode_bwd": 0.8666,
           "hash_encode": 0.4809, "hash_encode_smooth": 0.3809,
           "brick_encode": 0.08582, "hash_encode_bwd": 1.307,
-          "hash_encode_smooth_bwd": 0.8235}
+          "hash_encode_smooth_bwd": 0.8235, "shade_composite": 0.03483,
+          "shade_composite_bwd": 0.06082}
 # the encode wrappers whose launches the step profiles record, and the
 # labels of the kernels each launches in a trace (the first names it)
 ENCODE_WRAPPERS = {
@@ -317,6 +327,9 @@ ENCODE_WRAPPERS = {
 MLP_LABELS = {"fwd": ("mlp_fwd_kernel", "mlp_f32_fwd_kernel"),
               "bwd": ("mlp_bwd_kernel", "mlp_f32_bwd_kernel",
                       "mlp_grad_reduce_kernel")}
+# the composite kernels' labels in a trace (K4, a template of two load
+# widths each)
+COMPOSITE_LABELS = {"fwd": "shade_fwd_kernel", "bwd": "shade_bwd_kernel"}
 # the MLP against its plain version: float32 sums in another order than
 # cuBLAS's put a hidden unit on the other side of a bf16 rounding tie now
 # and then (field_eval's forward reads 0.042% of outputs off by > 1e-4); at
@@ -526,6 +539,44 @@ class MlpRecorder:
                 head, m, din, backward=direction == "bwd")["bound_ms"] \
                 * count / steps
             rec["shapes"].append([head.name, [m, din], count / steps])
+        return out
+
+
+class CompositeRecorder:
+    """Records, inside ``with``, every call of the composite kernels'
+    wrappers (``shade_composite_cuda`` / ``shade_composite_grad_cuda``, the
+    module attributes ``_ShadeComposite`` calls, swapped as
+    ``EncodeRecorder`` does): per direction and shape, its launches."""
+
+    NAMES = {"fwd": "shade_composite_cuda", "bwd": "shade_composite_grad_cuda"}
+
+    def __enter__(self):
+        from perf_tpu_torch.render import renderer
+        self.calls, self._mod = {}, renderer
+        self._saved = {d: getattr(renderer, n) for d, n in self.NAMES.items()}
+        for direction, orig in self._saved.items():
+            def wrapped(sigma, *rest, orig=orig, direction=direction, **kw):
+                key = (direction, tuple(sigma.shape))
+                self.calls[key] = self.calls.get(key, 0) + 1
+                return orig(sigma, *rest, **kw)
+            setattr(renderer, self.NAMES[direction], wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for direction, orig in self._saved.items():
+            setattr(self._mod, self.NAMES[direction], orig)
+
+    def per_direction(self, steps: int) -> dict:
+        """direction -> launches a step, bound ms a step and the shapes
+        ([n, s], launches a step) it launched at."""
+        out = {d: {"launches_per_step": 0.0, "bound_ms_per_step": 0.0,
+                   "shapes": []} for d in self.NAMES}
+        for (direction, (n, s)), count in self.calls.items():
+            rec = out[direction]
+            rec["launches_per_step"] += count / steps
+            rec["bound_ms_per_step"] += composite_bound(
+                n, s, backward=direction == "bwd")["bound_ms"] * count / steps
+            rec["shapes"].append([[n, s], count / steps])
         return out
 
 
@@ -1009,17 +1060,27 @@ def warm_steps(runner) -> dict:
                 steps.step(next(it) % n_iters)
             step_ms = host_ms(step, 10)
             before = cuda.counts()
-            with EncodeRecorder() as rec, MlpRecorder() as mlp_rec:
+            with EncodeRecorder() as rec, MlpRecorder() as mlp_rec, \
+                    CompositeRecorder() as comp_rec:
                 for _ in range(5):
                     step()
             after = cuda.counts()
             encodes = rec.per_label(5)
             mlp = mlp_rec.per_direction(5)
+            composite = comp_rec.per_direction(5)
             parts = {labels[0]: labels for labels in ENCODE_WRAPPERS.values()}
             profile = profile_device(
                 step, 5, step_ms, unit="step",
-                watch=sum(parts.values(), ()) + sum(MLP_LABELS.values(), ()))
+                watch=sum(parts.values(), ()) + sum(MLP_LABELS.values(), ())
+                + tuple(COMPOSITE_LABELS.values()))
             watched = profile.get("watched_ms")
+            for direction, r in composite.items():
+                r["ms_per_step"] = (watched[COMPOSITE_LABELS[direction]]
+                                    if watched else None)
+                log(f"{phase} step, shade_composite {direction}: "
+                    f"{r['ms_per_step']} ms a step over "
+                    f"{r['launches_per_step']} launches at {r['shapes']}, "
+                    f"in-step bound {r['bound_ms_per_step']:.6f} ms")
             for direction, r in mlp.items():
                 r["ms_per_step"] = (sum(watched[k]
                                         for k in MLP_LABELS[direction])
@@ -1040,7 +1101,8 @@ def warm_steps(runner) -> dict:
                 "launches_per_step": {k: (after[k] - before[k]) / 5
                                       for k in after
                                       if after[k] != before[k]},
-                "profile": profile, "encodes": encodes, "mlp": mlp}
+                "profile": profile, "encodes": encodes, "mlp": mlp,
+                "composite": composite}
     return out
 
 
@@ -1209,6 +1271,71 @@ def _exact_hidden_last(ws, x, sel, raw, g, head):
     return h.double().T @ head_epilogue_grad(raw, sel, g, head).T.double()
 
 
+def _mlp_bwd_part(ws, x, sel, raw, g, head) -> tuple:
+    """The backward kernel launched as ``ngp_mlp_bwd_cuda`` launches it, its
+    blocks' partial rows kept: (the weights' gradients, the last layer's
+    partial rows [blocks, 64, C] float32)."""
+    import torch
+    from perf_tpu_torch.kernels import ngp_mlp
+    index, din = ngp_mlp._check_args(ws, x, sel, head)
+    m, hid = x.shape[0], ngp_mlp.HIDDEN
+    sizes = ([din * hid] + [hid * hid] * (head.hidden - 1)
+             + [hid * head.channels])
+    blocks = ngp_mlp.bwd_blocks(head, m, x.device)
+    part = torch.empty((blocks, sum(sizes)), dtype=torch.float32,
+                       device=x.device)
+    grad = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ngp_mlp._BWD.launch(index, x.data_ptr(), sel.data_ptr(), raw.data_ptr(),
+                        g.data_ptr(), m, din, *ngp_mlp._layer_ptrs(ws),
+                        dx.data_ptr(), part.data_ptr(), blocks,
+                        grad.data_ptr())
+    torch.cuda.synchronize()
+    return ([v.view(w.shape) for v, w in zip(grad.split(sizes), ws)],
+            part[:, sum(sizes[:-1]):].view(blocks, hid, head.channels))
+
+
+def _last_rows_within(rows, h, d, d_move, tile: int, drop=None) -> float:
+    """The largest |row - sum| / bound over the entries of a bf16 head's
+    last-layer partial rows ``rows`` [blocks, 64, C] (block b sums the
+    tiles b, b + blocks, ... of ``tile`` points), against the float64 sums
+    of the plain version's terms h^T d over each block's points (h [M, 64]
+    the bf16 hidden values, d [M, C] the epilogue's cotangent; each product
+    exact in float64). The bound: the kernel's float32 FMA chain over half
+    a tile, then the block's tiles, then the two halves' sum pass a term
+    through D = tile / 2 + tiles + 1 roundings at most, so gamma_D = D u /
+    (1 - D u) (u = 2^-24) of the terms' magnitudes; the kernel's own
+    cotangent lies within ``d_move`` of d, in those magnitudes and as a
+    move; 2^-40 of the magnitudes covers the float64 sums. ``drop``: the
+    control, the rows with that tile's terms left out of its block's."""
+    import torch
+    blocks = rows.shape[0]
+    pad = -h.shape[0] % tile
+    h64, d64, m64 = (torch.nn.functional.pad(t.double(), (0, 0, 0, pad))
+                     .view(-1, tile, t.shape[1]) for t in (h, d, d_move))
+    blk = torch.arange(h64.shape[0], device=h.device) % blocks
+    exact_t = torch.einsum("tpk,tpc->tkc", h64, d64)
+    sums = {}
+    for key, per_tile in (
+            ("exact", exact_t),
+            ("mag", torch.einsum("tpk,tpc->tkc", h64.abs(), d64.abs())),
+            ("move", torch.einsum("tpk,tpc->tkc", h64.abs(), m64))):
+        sums[key] = torch.zeros((blocks,) + per_tile.shape[1:],
+                                dtype=torch.float64,
+                                device=h.device).index_add_(0, blk, per_tile)
+    depth = (tile // 2 + torch.bincount(blk, minlength=blocks) + 1).double()
+    gamma = (depth * 2.0 ** -24 / (1.0 - depth * 2.0 ** -24))[:, None, None]
+    bound = (gamma * (sums["mag"] + sums["move"]) + sums["move"]
+             + 2.0 ** -40 * sums["mag"])
+    got = rows.double().clone()
+    if drop is not None:
+        got[drop % blocks] -= exact_t[drop]
+    off = (got - sums["exact"]).abs()
+    ratio = torch.where(bound > 0, off / bound.clamp_min(1e-300),
+                        torch.where(off > 0, math.inf, 0.0))
+    return ratio.max().item()
+
+
 def _mlp_bf16_checks(ws, x, sel, raw, g, head, got, want) -> dict:
     """A bf16 head's backward ``got`` against the plain version's ``want``
     by ``fields/mlp.py`` ``bf16_grads_within`` on the full cotangent (dx
@@ -1217,16 +1344,18 @@ def _mlp_bf16_checks(ws, x, sel, raw, g, head, got, want) -> dict:
     plus the reach of their terms; the last layer within 1e-5 plus its
     terms' reach), then on the points no tie reaches (``tie_free``, the
     cotangent zero elsewhere: one ulp, the float64 sums, 1e-5, as for any
-    two float32 sums of the same terms), with three controls that must
-    fail: dx with five of its nonzero rows zeroed, the tie-free last layer
-    with the 64-point tile of the cotangent whose terms weigh most dropped,
-    the forward with its hidden outputs left unrounded."""
+    two float32 sums of the same terms; the last layer also block row by
+    block row, ``_last_rows_within``), with three controls that must fail:
+    dx with five of its nonzero rows zeroed, the tie-free last layer with
+    the 64-point tile of the cotangent whose terms weigh most dropped, the
+    forward with its hidden outputs left unrounded."""
     import torch
-    from perf_tpu_torch.fields.mlp import (_bf16, bf16_grad_sums_f64,
+    from perf_tpu_torch.fields.mlp import (_bf16, _epilogue_reach,
+                                           bf16_grad_sums_f64,
                                            bf16_grads_within, bf16_head_reach,
                                            head_epilogue, ngp_head_bwd_plain,
                                            ngp_head_bwd_terms, ngp_head_plain)
-    from perf_tpu_torch.kernels.ngp_mlp import ngp_mlp_bwd_cuda
+    from perf_tpu_torch.kernels.ngp_mlp import KERNEL_HEADS, ngp_mlp_bwd_cuda
 
     def flat(t):
         return [t[0], *t[1]]
@@ -1253,19 +1382,35 @@ def _mlp_bf16_checks(ws, x, sel, raw, g, head, got, want) -> dict:
     check(all(free["ok"].values())
           and all(bool((t == 0).all()) for t in reach2["terms"]),
           f"{name}, tie-free points: {free}")
-    # the 64-point tile whose terms of the tie-free last layer weigh most,
-    # dropped
+    # the tie-free last layer, also block row by block row: the kernel's
+    # partial rows against the float64 sums of the plain version's terms
+    # over each block's points. Its norm's bar (1e-5 plus the epilogue's
+    # reach, about 1e-3 of the norm at 2^20 points) cannot see a 64-point
+    # tile left out; a block's row can
+    tiles = KERNEL_HEADS[head][2]
+    grads_p, rows2 = _mlp_bwd_part(ws, x, sel, raw, g2, head)
+    check(torch.equal(grads_p[-1], got2[-1]), f"{name}: the partial rows' "
+          "launch differs from the wrapper's")
     acts, _, d, _ = ngp_head_bwd_terms(ws, x, sel, raw, g2, head,
                                        need_dx=False)
+    d_move = _epilogue_reach(raw, sel, g2, head).T
+    rows_ratio = _last_rows_within(rows2, acts[-1], d, d_move, tiles)
+    check(rows_ratio <= 1.0, f"{name}, tie-free points: a block's row of "
+          f"the last layer is off by {rows_ratio} of its bound")
+    # the 64-point tile of the cotangent whose terms weigh most, dropped
     weight = acts[-1].abs().sum(dim=1) * d.abs().sum(dim=1)
-    weight = torch.nn.functional.pad(weight, (0, -weight.shape[0] % 64))
-    tile = int(weight.view(-1, 64).sum(dim=1).argmax())
+    weight = torch.nn.functional.pad(weight, (0, -weight.shape[0] % tiles))
+    tile = int(weight.view(-1, tiles).sum(dim=1).argmax())
     g3 = g2.clone()
-    g3[:, 64 * tile:64 * tile + 64] = 0.0
+    g3[:, tiles * tile:tiles * tile + tiles] = 0.0
     drop = flat(ngp_head_bwd_plain(ws, x, sel, raw, g3, head))
     ctrl_tile = bf16_grads_within(drop, want2, sums2, reach2)
-    check(not ctrl_tile["ok"]["last"], f"{name}: a dropped tile passes: "
-          f"{ctrl_tile}")
+    ctrl_rows = _last_rows_within(rows2, acts[-1], d, d_move, tiles,
+                                  drop=tile)
+    del acts, d, d_move
+    check(not (ctrl_tile["ok"]["last"] and ctrl_rows <= 1.0),
+          f"{name}: a dropped tile passes: {ctrl_tile}, its block's row "
+          f"off by {ctrl_rows} of its bound")
     h = _bf16(x)
     for w in ws[:-1]:
         h = torch.relu(h @ _bf16(w))
@@ -1278,14 +1423,16 @@ def _mlp_bf16_checks(ws, x, sel, raw, g, head, got, want) -> dict:
     return {"max_ulps": full["max_ulps"], "past_one_ulp": full["past_ulp"],
             "last_rel": full["last_rel"],
             "tie_free_share": tie_free.float().mean().item(),
-            "tie_free": {k: free[k] for k in ("max_ulps", "past_ulp",
-                                              "last_rel")},
+            "tie_free": {**{k: free[k] for k in ("max_ulps", "past_ulp",
+                                                 "last_rel")},
+                         "last_row_over_bound": rows_ratio},
             "last_rel_to_exact_hidden": {
                 k: ((v.double() - exact).norm() / exact.norm()).item()
                 for k, v in (("kernel", got[-1]), ("plain", want[-1]))},
             "controls": {"dx_rows_zeroed_past_bound":
                          ctrl_dx["past_reach"]["dx"],
                          "tile_dropped_last_rel": ctrl_tile["last_rel"],
+                         "tile_dropped_row_over_bound": ctrl_rows,
                          "fwd_unrounded_loose_share": ctrl_fwd.item()}}
 
 
@@ -1451,20 +1598,159 @@ def compare_mlp_kernels(runner, hash_runner, prop_runner, seed: int) -> dict:
             for name, r in res.items()}
 
 
+def _composite_sigma(scene, cfg, o, d, t_mid, valid):
+    """sigma of the trained density field at [n, s] samples, where-masked
+    to 0 at invalid ones (as ``shade_rays`` gives the composite)."""
+    import torch
+    from perf_tpu_torch.fields import query_density_ray
+    from perf_tpu_torch.kernels.hashgrid import level_strides
+    strides = level_strides(scene.field_cfg.grid, cfg.step, t_mid.shape[1])
+    with torch.no_grad():
+        sigma = query_density_ray(scene.params["geo"], *(
+            o[:, a:a + 1] + d[:, a:a + 1] * t_mid for a in range(3)),
+            scene.field_cfg, strides)
+    return torch.where(valid > 0, sigma, torch.zeros_like(sigma)).contiguous()
+
+
+def _bucket_inputs(scene, cfg, o, d, jitter, march) -> dict:
+    """The geometry step's two buckets of this batch (``render_rays_bucketed``:
+    the rays sorted by occupied windows, the n - n_high lowest at s_low
+    samples, the rest at the budget): {"bucket_low": (sigma, t, valid),
+    "bucket_high": ...}. The episode must have a bucket plan."""
+    import torch
+    from perf_tpu_torch.render.renderer import windows_to_samples
+    plan = scene.phase_render_cfg("geo")[1]
+    check(bool(plan), "composite: the episode's geometry step has no bucket "
+          "plan, so the bucket shapes cannot be held")
+    s_low, n_high = plan
+    widx, wvalid, counts = march[:3]
+    order = torch.argsort(counts, stable=True)
+    n_low, spw = o.shape[0] - n_high, cfg.samples_per_window
+    out = {}
+    for name, rows, windows in (("bucket_low", order[:n_low], s_low // spw),
+                                ("bucket_high", order[n_low:],
+                                 widx.shape[1])):
+        t_b, v_b = windows_to_samples(widx[rows, :windows],
+                                      wvalid[rows, :windows], cfg,
+                                      jitter[rows])
+        out[name] = (_composite_sigma(scene, cfg, o[rows], d[rows], t_b, v_b),
+                     t_b.contiguous(), v_b.contiguous())
+    return out
+
+
+def composite_bound(n: int, s: int, backward: bool = False) -> dict:
+    """The composite's bound by the function's bytes: sigma, t and valid
+    read and one [n, s] output written (the weights forward, dsigma
+    backward), 12 bytes a ray (the three per-ray outputs forward, their
+    cotangents backward); ~30 float32 operations a sample forward, ~40
+    backward."""
+    return bound(n * s * 16 + n * 12, n * s * (40 if backward else 30))
+
+
+def _composite_rows(sigma, t_mid, valid, delta: float, gen, tag: str):
+    """The K4 rows at one shape: both kernels against the plain version
+    (forward within 1e-5 of the outputs; backward within 1e-4 relative to
+    its largest entry), a second backward launch bitwise, both again on
+    the same rays with their densities scaled to a total tau of 3, and the
+    times."""
+    import torch
+    from perf_tpu_torch.render.renderer import (
+        composite_lanes, shade_composite_cuda, shade_composite_grad_cuda,
+        shade_composite_plain)
+    n, s = t_mid.shape
+    c_got = shade_composite_cuda(sigma, t_mid, valid, delta)
+    c_ref = shade_composite_plain(sigma, t_mid, valid, delta)
+    torch.cuda.synchronize()
+    errs = [(a - b).abs().max().item() for a, b in zip(c_got, c_ref)]
+    # float32 lane runs and shuffle scans against cumsum / sum: ~1e-6 of
+    # values <= 1 (weights, opacity), <= 1.5 (distance)
+    check(max(errs) <= 1e-5, f"shade_composite ({tag}): {errs}")
+    check(bool(all(torch.isfinite(x).all() for x in c_got)),
+          f"shade_composite ({tag}): not finite")
+    if tag == "scene":
+        check(float(c_ref[1].mean()) > 0.2, f"composite ({tag}) transparent")
+    lanes = list(composite_lanes(s))
+    fwd = {"shape": [n, s], "lanes": lanes, "max_abs_err": max(errs),
+           "ms": cuda_ms(lambda: shade_composite_cuda(sigma, t_mid, valid,
+                                                      delta), 20),
+           "plain_ms": cuda_ms(lambda: shade_composite_plain(
+               sigma, t_mid, valid, delta), 5),
+           "was_bound_ms": bound(n * s * 20 + n * 12, n * s * 30)["bound_ms"],
+           **composite_bound(n, s)}
+    cots = [torch.randn(sh, generator=gen, device=sigma.device)
+            for sh in ((n, 1), (n, 1), (n,))]
+    g_got = shade_composite_grad_cuda(sigma, t_mid, valid, delta, *cots)
+    again = shade_composite_grad_cuda(sigma, t_mid, valid, delta, *cots)
+    sig_req = sigma.clone().requires_grad_(True)
+    outs = shade_composite_plain(sig_req, t_mid, valid, delta)[1:]
+    lin = sum((a * c).sum() for a, c in zip(outs, cots))
+    (g_ref,) = torch.autograd.grad(lin, sig_req, retain_graph=True)
+    torch.cuda.synchronize()
+    # a reverse scan against autograd's: relative to the largest entry. A
+    # batch whose rays all saturate at their first sample (T and exp(-tau)
+    # underflow to 0 past it) has dsigma exactly 0 in both; then the kernel
+    # must give exactly 0 too
+    diff, ref_max = ((g_got - g_ref).abs().max().item(),
+                     g_ref.abs().max().item())
+    gerr = diff / ref_max if ref_max > 0 else (0.0 if diff == 0 else math.inf)
+    check(bool(torch.isfinite(g_got).all()) and gerr <= 1e-4,
+          f"shade_composite_bwd ({tag}): {gerr}")
+    check(torch.equal(g_got, again),
+          f"shade_composite_bwd ({tag}): a second launch differs")
+    if ref_max == 0:
+        log(f"shade_composite_bwd ({tag}): dsigma is 0 on every sample "
+            f"(kernel and plain): every ray saturates at its first sample")
+    # the trained field saturates most rays within a few samples (dsigma 0
+    # past them; at the high bucket on every sample), so both kernels are
+    # held again on the same rays with each ray's densities scaled to a
+    # total tau of 3: the field's shape along the ray, every sample's
+    # dsigma nonzero
+    tot = sigma.sum(1, keepdim=True) * delta
+    soft = torch.where(tot > 0, sigma * (3.0 / tot.clamp_min(1e-30)),
+                       torch.zeros_like(sigma))
+    s_got = shade_composite_cuda(soft, t_mid, valid, delta)
+    soft_req = soft.clone().requires_grad_(True)
+    s_ref = shade_composite_plain(soft_req, t_mid, valid, delta)
+    s_lin = sum((a * c).sum() for a, c in zip(s_ref[1:], cots))
+    (s_gref,) = torch.autograd.grad(s_lin, soft_req)
+    s_g = shade_composite_grad_cuda(soft, t_mid, valid, delta, *cots)
+    torch.cuda.synchronize()
+    s_errs = [(a - b.detach()).abs().max().item()
+              for a, b in zip(s_got, s_ref)]
+    check(max(s_errs) <= 1e-5, f"shade_composite ({tag}, scaled): {s_errs}")
+    s_gmax = s_gref.abs().max().item()
+    s_gerr = (s_g - s_gref).abs().max().item() / s_gmax if s_gmax else 0.0
+    check(bool(torch.isfinite(s_g).all()) and s_gmax > 0 and s_gerr <= 1e-4,
+          f"shade_composite_bwd ({tag}, scaled): {s_gerr}")
+    fwd["scaled_max_abs_err"] = max(s_errs)
+    bwd = {"shape": [n, s], "lanes": lanes, "max_abs_err": diff,
+           "max_rel_err": gerr, "rerun_equal": True,
+           "dsigma_nonzero_share": (g_ref != 0).float().mean().item(),
+           "scaled_max_rel_err": s_gerr,
+           "scaled_dsigma_nonzero_share":
+               (s_gref != 0).float().mean().item(),
+           "ms": cuda_ms(lambda: shade_composite_grad_cuda(
+               sigma, t_mid, valid, delta, *cots), 20),
+           "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+               lin, sig_req, retain_graph=True), 5),
+           "was_bound_ms": bound(n * s * 24 + n * 12, n * s * 40)["bound_ms"],
+           **composite_bound(n, s, backward=True)}
+    return fwd, bwd
+
+
 def compare_train_kernels(runner, seed: int) -> dict:
     """Each training kernel against its plain version at the smoke scene's
     geometry-phase shape (8192 rays at the phase budget) and at the pinned
-    8192 x 128; the pool-sized kernels (occupancy grid, window counts) at
-    their path's shapes."""
+    8192 x 128, the composite also at the geometry step's two buckets of
+    the scene's batch; the pool-sized kernels (occupancy grid, window
+    counts) at their path's shapes."""
     import numpy as np
     import torch
-    from perf_tpu_torch.fields import query_density_ray
     from perf_tpu_torch.render.occgrid import (occ_grid_from_points_cuda,
                                                occ_grid_from_points_plain)
     from perf_tpu_torch.render.renderer import (
         count_occupied_windows_cuda, count_occupied_windows_plain,
-        march_windows_cuda, march_windows_plain, shade_composite_cuda,
-        shade_composite_grad_cuda, shade_composite_plain)
+        march_windows_cuda, march_windows_plain)
     scene = runner.scene
     grid = scene.field_cfg.grid
     table = scene.params["geo"]["table"]
@@ -1507,48 +1793,16 @@ def compare_train_kernels(runner, seed: int) -> dict:
         gen = torch.Generator(device=scene.device).manual_seed(seed + 2)
 
         # the composite: sigma of the trained field at these samples
-        with torch.no_grad():
-            sigma = query_density_ray(scene.params["geo"], *(
-                o[:, a:a + 1] + d[:, a:a + 1] * t_mid for a in range(3)),
-                scene.field_cfg, strides)
-        sigma = torch.where(valid > 0, sigma, torch.zeros_like(sigma))
+        sigma = _composite_sigma(scene, cfg, o, d, t_mid, valid)
         delta = cfg.step * cfg.sample_stride
-        c_got = shade_composite_cuda(sigma, t_mid, valid, delta)
-        c_ref = shade_composite_plain(sigma, t_mid, valid, delta)
-        torch.cuda.synchronize()
-        errs = [(c_got[i] - c_ref[j]).abs().max().item()
-                for i, j in ((0, 0), (2, 1), (3, 2), (4, 3))]
-        # sequential float32 scans against cumsum / sum: ~1e-6 of values
-        # <= 1 (weights, opacity), <= 1.5 (distance)
-        check(max(errs) <= 1e-5, f"shade_composite ({tag}): {errs}")
-        check(float(c_ref[1].mean()) > 0.2, f"composite ({tag}) transparent")
-        res["shade_composite"][tag] = {
-            "shape": [n, s], "max_abs_err": max(errs),
-            "ms": cuda_ms(lambda: shade_composite_cuda(sigma, t_mid, valid,
-                                                       delta), 20),
-            "plain_ms": cuda_ms(lambda: shade_composite_plain(
-                sigma, t_mid, valid, delta), 5),
-            **bound(n * s * 20 + n * 12, n * s * 30)}
-        cots = [torch.randn(sh, generator=gen, device=scene.device)
-                for sh in ((n, 1), (n, 1), (n,))]
-        g_got = shade_composite_grad_cuda(sigma, t_mid, valid, c_got[0],
-                                          c_got[1], delta, *cots)
-        sig_req = sigma.clone().requires_grad_(True)
-        outs = shade_composite_plain(sig_req, t_mid, valid, delta)[1:]
-        lin = sum((a * c).sum() for a, c in zip(outs, cots))
-        (g_ref,) = torch.autograd.grad(lin, sig_req, retain_graph=True)
-        torch.cuda.synchronize()
-        gerr = ((g_got - g_ref).abs().max() / g_ref.abs().max()).item()
-        # a reverse scan against autograd's: relative to the largest entry
-        check(gerr <= 1e-4, f"shade_composite_bwd ({tag}): {gerr}")
-        res["shade_composite_bwd"][tag] = {
-            "shape": [n, s], "max_abs_err": (g_got - g_ref).abs().max().item(),
-            "max_rel_err": gerr,
-            "ms": cuda_ms(lambda: shade_composite_grad_cuda(
-                sigma, t_mid, valid, c_got[0], c_got[1], delta, *cots), 20),
-            "plain_ms": cuda_ms(lambda: torch.autograd.grad(
-                lin, sig_req, retain_graph=True), 5),
-            **bound(n * s * 24 + n * 12, n * s * 40)}
+        shapes = {tag: (sigma, t_mid, valid)}
+        if tag == "scene":
+            # the two-budget geometry step's buckets, as the step forms them
+            shapes.update(_bucket_inputs(scene, cfg, o, d, jitter, march))
+        for name, (sig_b, t_b, v_b) in shapes.items():
+            fwd, bwd = _composite_rows(sig_b, t_b, v_b, delta, gen, name)
+            res["shade_composite"][name] = fwd
+            res["shade_composite_bwd"][name] = bwd
 
     # the pool-sized kernels, at the episode's shapes
     arrs = runner.sup_pool.device_arrays(scene.device)
@@ -3489,9 +3743,16 @@ def run(seed: int):
                        ("brick_encode", ("scene", "pinned", "prop_final")),
                        ("hash_encode_bwd", ("scene", "pinned",
                                             "prop_points")),
-                       ("hash_encode_smooth_bwd", (None,))):
+                       ("hash_encode_smooth_bwd", (None,)),
+                       ("shade_composite", ("scene", "pinned", "bucket_low",
+                                            "bucket_high")),
+                       ("shade_composite_bwd", ("scene", "pinned",
+                                                "bucket_low",
+                                                "bucket_high"))):
         for tag in tags:
-            r = results[name] if tag is None else results[name][tag]
+            r = results[name] if tag is None else results[name].get(tag)
+            if r is None:
+                continue
             glue = (f", glue absorbed {r['glue_ms']:.5f}" if "glue_ms" in r
                     else "")
             log(f"{name}[{tag or 'row'}]: {r['ms']:.5f} ms (was "
@@ -3550,7 +3811,10 @@ def run(seed: int):
                                    "max_rel_err", "loose_share",
                                    "rel_norm_err", "rerun_rel_norm",
                                    "points", "strides",
-                                   "glue_ms",
+                                   "glue_ms", "lanes", "was_bound_ms",
+                                   "dsigma_nonzero_share",
+                                   "scaled_max_abs_err", "scaled_max_rel_err",
+                                   "scaled_dsigma_nonzero_share",
                                    "last_bin_equal",
                                    "last_bin_rounded_rays",
                                    "last_bin_true_prefix_median",
@@ -3568,7 +3832,8 @@ def run(seed: int):
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top.get("library_ms"),
-            **{k: r[k] for k in ("pinned", "readback", "bake", "level1",
+            **{k: r[k] for k in ("pinned", "bucket_low", "bucket_high",
+                                 "readback", "bake", "level1",
                                  "final", "prop_final", "prop_points",
                                  "vis_core", "views", "geo_hash",
                                  "app_windows", "app_hash", "prop_app")

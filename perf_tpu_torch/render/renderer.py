@@ -357,12 +357,44 @@ def shade_composite_plain(sigma, t_mid, valid, delta: float):
 
 _SHADE = cuda.register(cuda.CudaKernel(
     "shade_composite", "shade_composite.cu", "shade_composite_fwd_launch",
-    [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.F32, cuda.P, cuda.P,
-     cuda.P, cuda.P, cuda.P]))
+    [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.I32, cuda.I32, cuda.I32,
+     cuda.F32, cuda.P, cuda.P, cuda.P, cuda.P]))
 _SHADE_BWD = cuda.register(cuda.CudaKernel(
     "shade_composite_bwd", "shade_composite.cu", "shade_composite_bwd_launch",
-    [cuda.P, cuda.P, cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.F32,
-     cuda.P, cuda.P, cuda.P, cuda.P, cuda.P]))
+    [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.I32, cuda.I32, cuda.I32,
+     cuda.F32, cuda.P, cuda.P, cuda.P, cuda.P]))
+# the longest row the backward takes: its shared memory holds three carries
+# a chunk of 256 samples for each of a block's 4 rays, within 48 KB
+SHADE_MAX_SAMPLES = 1 << 18
+
+
+def composite_lanes(s: int) -> tuple:
+    """(G, R) of the ``shade_composite`` kernels for rows of s samples: a
+    ray is a group of G lanes (8, 16 or 32) and a lane a run of R <= 8
+    consecutive samples; a row longer than G R runs in chunks of G R. G
+    grows with s (8 up to 64 samples, 16 up to 128, else 32); R is
+    ceil(s / G), rounded up to a multiple of 4 where s is one, so that a
+    lane loads its run 16 bytes at a time and the tail's lanes idle. On an
+    H100 fewer, longer runs beat more lanes at every measured shape (the
+    group scans' shuffles cost the same whatever R is, and the 1,024-ray
+    high bucket too runs faster on 16 lanes than on 32; PERF.md §6)."""
+    g = 8 if s <= 64 else 16 if s <= 128 else 32
+    r = min(8, -(-s // g))
+    if s % 4 == 0:
+        r = min(8, -(-r // 4) * 4)
+    return g, r
+
+
+def _lane_plan(s: int, *tensors) -> tuple:
+    """(G, R, vec) of a launch: ``composite_lanes``'s plan, with 16-byte
+    loads where R and s are multiples of 4 and every row aligned."""
+    g, r = composite_lanes(s)
+    if s > SHADE_MAX_SAMPLES:
+        raise ValueError(f"shade_composite: rows of {s} samples, at most "
+                         f"{SHADE_MAX_SAMPLES}")
+    vec = r % 4 == 0 and s % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                            for t in tensors)
+    return g, r, int(vec)
 
 
 def _check_samples(*named):
@@ -372,36 +404,35 @@ def _check_samples(*named):
 
 
 def shade_composite_cuda(sigma, t_mid, valid, delta: float):
-    """Kernel forward -> (weights, trans, opacity [N, 1], distance [N, 1],
+    """Kernel forward -> (weights, opacity [N, 1], distance [N, 1],
     dist_loss [N])."""
     _check_samples(("sigma", sigma), ("t_mid", t_mid), ("valid", valid))
     n, s = sigma.shape
     f32 = dict(dtype=torch.float32, device=sigma.device)
-    weights, trans = torch.empty((n, s), **f32), torch.empty((n, s), **f32)
+    weights = torch.empty((n, s), **f32)
     opacity, distance = torch.empty((n, 1), **f32), torch.empty((n, 1), **f32)
     dist_loss = torch.empty((n,), **f32)
+    g, r, vec = _lane_plan(s, sigma, t_mid, valid, weights)
     _SHADE.launch(sigma.data_ptr(), t_mid.data_ptr(), valid.data_ptr(), n, s,
-                  float(delta), weights.data_ptr(), trans.data_ptr(),
+                  g, r, vec, float(delta), weights.data_ptr(),
                   opacity.data_ptr(), distance.data_ptr(), dist_loss.data_ptr())
-    return weights, trans, opacity, distance, dist_loss
+    return weights, opacity, distance, dist_loss
 
 
-def shade_composite_grad_cuda(sigma, t_mid, valid, weights, trans,
-                              delta: float, g_op, g_dist, g_dl):
+def shade_composite_grad_cuda(sigma, t_mid, valid, delta: float, g_op, g_dist,
+                              g_dl):
     """Kernel backward: dsigma [N, S] from the cotangents of opacity,
-    distance and dist_loss."""
-    _check_samples(("sigma", sigma), ("t_mid", t_mid), ("valid", valid),
-                   ("weights", weights), ("trans", trans))
+    distance and dist_loss; recomputes the forward from sigma."""
+    _check_samples(("sigma", sigma), ("t_mid", t_mid), ("valid", valid))
     n, s = sigma.shape
     grads = [g.reshape(n).contiguous() for g in (g_op, g_dist, g_dl)]
     for name, g in zip(("g_opacity", "g_distance", "g_dist_loss"), grads):
         cuda.check(g, name, torch.float32, (n,), sigma.device)
-    scratch = torch.empty((n, s, 2), dtype=torch.float32, device=sigma.device)
     g_sigma = torch.empty((n, s), dtype=torch.float32, device=sigma.device)
-    _SHADE_BWD.launch(sigma.data_ptr(), t_mid.data_ptr(), valid.data_ptr(),
-                      weights.data_ptr(), trans.data_ptr(), n, s,
-                      float(delta), grads[0].data_ptr(), grads[1].data_ptr(),
-                      grads[2].data_ptr(), scratch.data_ptr(),
+    g, r, vec = _lane_plan(s, sigma, t_mid, valid, g_sigma)
+    _SHADE_BWD.launch(sigma.data_ptr(), t_mid.data_ptr(), valid.data_ptr(), n,
+                      s, g, r, vec, float(delta), grads[0].data_ptr(),
+                      grads[1].data_ptr(), grads[2].data_ptr(),
                       g_sigma.data_ptr())
     return g_sigma
 
@@ -409,19 +440,18 @@ def shade_composite_grad_cuda(sigma, t_mid, valid, weights, trans,
 class _ShadeComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sigma, t_mid, valid, delta):
-        weights, trans, opacity, distance, dist_loss = shade_composite_cuda(
+        weights, opacity, distance, dist_loss = shade_composite_cuda(
             sigma, t_mid, valid, delta)
         ctx.mark_non_differentiable(weights)
-        ctx.save_for_backward(sigma, t_mid, valid, weights, trans)
+        ctx.save_for_backward(sigma, t_mid, valid)
         ctx.delta = delta
         return weights, opacity, distance, dist_loss
 
     @staticmethod
     def backward(ctx, _g_weights, g_op, g_dist, g_dl):
-        sigma, t_mid, valid, weights, trans = ctx.saved_tensors
-        g_sigma = shade_composite_grad_cuda(sigma, t_mid, valid, weights,
-                                            trans, ctx.delta, g_op, g_dist,
-                                            g_dl)
+        sigma, t_mid, valid = ctx.saved_tensors
+        g_sigma = shade_composite_grad_cuda(sigma, t_mid, valid, ctx.delta,
+                                            g_op, g_dist, g_dl)
         return g_sigma, None, None, None
 
 

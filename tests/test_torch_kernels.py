@@ -44,9 +44,9 @@ from perf_tpu_torch.render.occgrid import (occ_grid_from_points,
                                            occ_grid_from_points_cuda,
                                            occ_grid_from_points_plain)
 from perf_tpu_torch.render.renderer import (
-    count_occupied_windows, count_occupied_windows_cuda,
+    composite_lanes, count_occupied_windows, count_occupied_windows_cuda,
     count_occupied_windows_plain, shade_composite, shade_composite_cuda,
-    shade_composite_plain)
+    shade_composite_grad_cuda, shade_composite_plain)
 from perf_tpu_torch.core import bilinear_sample
 from perf_tpu_torch.core.resample import (SORTED_MAX_SAMPLES,
                                           bilinear_sample_cuda,
@@ -371,6 +371,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA"):
         shade_composite_cuda(x, x, x, 0.01)
     with pytest.raises(ValueError, match="CUDA"):
+        shade_composite_grad_cuda(x, x, x, 0.01, x[:, :1], x[:, :1], x[:, 0])
+    with pytest.raises(ValueError, match="CUDA"):
         occ_grid_from_points_cuda(o, 64)
     img = torch.zeros((2, 5, 7, 3))
     with pytest.raises(ValueError, match="CUDA"):
@@ -662,6 +664,7 @@ def test_importing_the_anchor_slice_never_imports_jax():
             "perf_tpu_torch.tools.bilinear_bwd_variants, "
             "perf_tpu_torch.tools.encode_probe, "
             "perf_tpu_torch.tools.mlp_probe, perf_tpu_torch.kernels.ngp_mlp, "
+            "perf_tpu_torch.tools.composite_probe, "
             "perf_tpu_torch.priors.pano_refiner, "
             "perf_tpu_torch.priors.pano_fusion, perf_tpu_torch.data.dataset; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -791,16 +794,36 @@ def test_stratified_march_and_count_kernels_equal_plain(gpu, budget):
                        count_occupied_windows_plain(occ, o, d, cfg))
 
 
-@pytest.mark.cuda
-def test_shade_composite_kernels_match_plain(gpu):
-    dev = gpu[0]
-    rng = np.random.default_rng(7)
-    n, s = 1025, 48
-    valid = (rng.uniform(size=(n, s)) < 0.7).astype(np.float32)
-    sig = rng.exponential(30.0, (n, s)).astype(np.float32) * valid
-    t_mid = np.sort(rng.uniform(0, 1.5, (n, s)), 1).astype(np.float32)
-    cots = [torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dev)
+def shade_case(n: int, s: int, seed: int) -> tuple:
+    """sigma, t_mid, valid [n, s] float32 and three cotangents: a run of
+    valid samples at a random place, densities from clear to opaque; rows
+    0-1 entirely invalid, rows 2-3 saturated from their first sample on
+    (tau up to 1e3, where T underflows to 0)."""
+    rng = np.random.default_rng(seed)
+    start, length = rng.integers(0, s, n), rng.integers(1, s + 1, n)
+    idx = np.arange(s)[None, :]
+    valid = ((idx >= start[:, None]) & (idx < (start + length)[:, None])
+             & (rng.uniform(size=(n, s)) < 0.9)).astype(np.float32)
+    valid[:2] = 0.0
+    valid[2:4, 0] = 1.0
+    tau = rng.exponential(1.0, (n, s)) * 10.0 ** rng.uniform(-3, 0.5, (n, 1))
+    tau[2:4] = rng.uniform(100.0, 1e3, (2, s))
+    sig = (tau / 1e-3 * valid).astype(np.float32)
+    t_mid = np.sort(rng.uniform(0.05, 1.5, (n, s)), 1).astype(np.float32)
+    cots = [rng.normal(size=sh).astype(np.float32)
             for sh in ((n, 1), (n, 1), (n,))]
+    return sig, t_mid, valid, cots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", (1, 17, 80, 256))
+def test_shade_composite_kernels_match_plain(gpu, s):
+    """A group of lanes a ray; 1037 rays fill no block evenly (4, 8 or 16
+    rays a block)."""
+    dev = gpu[0]
+    n = 1037
+    sig, t_mid, valid, cots = shade_case(n, s, 7 + s)
+    cots = [torch.from_numpy(c).to(dev) for c in cots]
     outs, grads = [], []
     for fn in (shade_composite, shade_composite_plain):
         st = torch.from_numpy(sig).to(dev).requires_grad_(True)
@@ -810,11 +833,41 @@ def test_shade_composite_kernels_match_plain(gpu):
          + (dl * cots[2]).sum()).backward()
         outs.append((w.detach(), op.detach(), dist.detach(), dl.detach()))
         grads.append(st.grad)
-    # sequential float32 scans vs PyTorch's cumsum / sum order
+    # float32 lane runs and shuffle scans vs PyTorch's cumsum / sum order
     for a, b in zip(*outs):
+        assert torch.isfinite(a).all()
         assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max())
+    assert torch.isfinite(grads[0]).all()
     err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
     assert err.item() <= 1e-5
+    # no atomics: a second launch repeats dsigma bitwise
+    args = [torch.from_numpy(a).to(dev) for a in (sig, t_mid, valid)]
+    again = shade_composite_grad_cuda(*args, 1e-3, *cots)
+    assert torch.equal(again, grads[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", (600, 1001))
+def test_shade_composite_kernels_in_chunks(gpu, s):
+    """Rows longer than a group's G R (the plan's 32 lanes of 8 samples: 3
+    and 4 chunks), so the carries go from chunk to chunk and the
+    backward's through shared memory; 16-byte loads at 600 samples, scalar
+    loads at 1001."""
+    dev = gpu[0]
+    assert composite_lanes(s) == (32, 8)
+    *arrays, cots = shade_case(45, s, 11)
+    sig, t_mid, valid, *cots = (torch.from_numpy(a).to(dev)
+                                for a in arrays + cots)
+    got = shade_composite_cuda(sig, t_mid, valid, 1e-3)
+    st = sig.clone().requires_grad_(True)
+    want = shade_composite_plain(st, t_mid, valid, 1e-3)
+    for a, b in zip(got, want):
+        assert (a - b.detach()).abs().max().item() <= 1e-5 * max(
+            1.0, b.abs().max())
+    lin = sum((o * c).sum() for o, c in zip(want[1:], cots))
+    (ref,) = torch.autograd.grad(lin, st)
+    ds = shade_composite_grad_cuda(sig, t_mid, valid, 1e-3, *cots)
+    assert ((ds - ref).abs().max() / ref.abs().max()).item() <= 1e-5
 
 
 @pytest.mark.cuda
